@@ -19,9 +19,27 @@ result line:
   5. CFG-2 at full size (4,641,652 bp, 50x, 100 bp reads, k=31, table
      capacity 5,242,880): one cold run, then a warm run with the kernel's
      launch counter reset just before it; the contig must equal the
-     genome, and the warm per-stage seconds are printed.
+     genome, and the warm per-stage seconds are printed;
+  6. the sharded count on a mesh of 4 shards over the visible GPUs:
+     CFG-1's contigs from ``assemble_distributed`` equal the oracle's,
+     with per-window and with minimizer (m=15) routing, and the routed
+     bytes of both are printed;
+  7. CFG-4 at full size (12,000,000 bp, 100x, 100 bp reads, k=31, table
+     capacity snug_capacity(1.5 x genome + 4096)) on 4 shards, streamed:
+     the kernel against its plain version, bit-equal, on the inputs its
+     run hands each shard in the first and the tail batch (the shapes and
+     n_valid of the run's stream plan);
+     ``assemble_distributed`` with the launch counter reset just before
+     it gives one contig equal to the genome (wall and stage seconds,
+     routed bytes and peak device memory printed); the gathered table
+     equals the single-device ``count_reads_device`` table bit for bit;
+     one streamed batch is timed with CUDA events with and without its
+     merge, for the routing step's share;
+  8. a mid-stream stop and resume on the card (CFG-2 reads, one device
+     and 4 shards): the resumed table equals the uninterrupted one.
 
-The line before the last is the kernel report; the last line is
+The line before the last is the kernel report (launches summed over the
+two main-path runs, CFG-2 and CFG-4); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 JAX is never imported.
 """
@@ -29,8 +47,10 @@ JAX is never imported.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNEL_SOURCE = "genome_assembler_tpu_torch/csrc/kmer_extract.cu"
@@ -146,6 +166,13 @@ def phase_kernel(torch, ref, kmer, dev):
     return worst, ms, plain_ms
 
 
+def cfg1_reads(ref):
+    genome = ref.simulate_genome(48_502, seed=1020)
+    rs = ref.simulate_reads(genome, coverage=100, read_len=100, seed=1021,
+                            error_rate=0.01, tile_k=31)
+    return rs.codes, ref.AssemblyConfig(k=31, min_count=5, read_len=100)
+
+
 def phase_oracle(torch, ref, pipeline, dev):
     cases = [
         ("CFG-0", 10_000, 100, 25, 0.0, 1, 1010),
@@ -209,7 +236,171 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
         f"({len(contigs[0])} bp), {windows} windows, kernel launches "
         f"{launches}, peak device memory {peak / 2**30:.2f} GiB")
     log("CFG-2 warm stages (s): " + json.dumps(stages))
-    return launches
+    return launches, rs.codes, capacity
+
+
+def tables_equal(torch, a, b) -> bool:
+    """Bit-equal tables up to num_unique (capacities may differ)."""
+    n = int(a.num_unique)
+    return (
+        n == int(b.num_unique)
+        and not bool(a.overflow) and not bool(b.overflow)
+        and torch.equal(a.limbs[:n], b.limbs[:n])
+        and torch.equal(a.counts[:n], b.counts[:n])
+    )
+
+
+def phase_mesh_cfg1(torch, ref, dist, mesh_mod):
+    reads, cfg = cfg1_reads(ref)
+    want = ref.assemble_oracle(reads, cfg)
+    mesh = mesh_mod.build_mesh(4)
+    log(f"mesh: {mesh}")
+    wire = {}
+    for mini in (None, 15):
+        m = dist.Metrics()
+        got = dist.assemble_distributed(reads, cfg, mesh, metrics=m,
+                                        minimizer_len=mini)
+        name = "per-window" if mini is None else f"minimizer m={mini}"
+        check(got == want, f"CFG-1 on 4 shards ({name}) != oracle "
+              f"({len(got)} vs {len(want)} contigs)")
+        wire[name] = int(m.counters["a2a_bytes_count"])
+        log(f"CFG-1 on 4 shards, {name}: {len(got)} contig(s) equal to the "
+            f"oracle; routed {wire[name]} bytes")
+    log(f"CFG-1 routed bytes, per-window / minimizer: "
+        f"{wire['per-window'] / wire['minimizer m=15']:.2f}x")
+
+
+def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
+    from genome_assembler_tpu_torch.ops import count_torch
+    from genome_assembler_tpu_torch.utils.keys import snug_capacity
+
+    glen, k = 12_000_000, 31
+    t0 = time.perf_counter()
+    genome = ref.simulate_genome(glen, seed=1050)
+    rs = ref.simulate_reads(genome, coverage=100, read_len=100, seed=1051)
+    log(f"CFG-4: simulated {rs.num_reads} reads in "
+        f"{time.perf_counter() - t0:.2f} s")
+    capacity = snug_capacity(int(1.5 * glen) + 4096)
+    cfg = ref.AssemblyConfig(k=k, read_len=100)
+    mesh = mesh_mod.build_mesh(4)
+    want = [ref.decode_seq(genome)]
+    windows = rs.num_reads * (100 - k + 1)
+    plan = dist._StreamPlan(rs.num_reads, 100, cfg, mesh.size, None, None,
+                            capacity)
+    err = 0
+    for i in sorted({0, plan.num_batches - 1}):
+        # the kernel's inputs in this run: the first and the tail batch,
+        # every shard with its n_valid
+        packed, _, n_valid = dist._stream_batch(mesh, rs.codes, plan, i, False)
+        for s, nv in enumerate(n_valid):
+            got = kmer.extract_canonical_flat(packed[s], 100, k, nv)
+            ref_keys = kmer.extract_canonical_flat_ref(packed[s], 100, k, nv)
+            torch.cuda.synchronize()
+            e = max_abs_err(torch, got, ref_keys)
+            check(e == 0, f"CFG-4 batch {i} shard {s}: kernel != plain "
+                  f"version at {packed[s].shape[0]} reads, n_valid {nv} "
+                  f"(max err {e})")
+            err = max(err, e)
+        log(f"CFG-4 kernel inputs of batch {i}/{plan.num_batches}: bit-equal "
+            f"to the plain version on every shard ({plan.per_dev} reads x "
+            f"100 a shard, n_valid {n_valid})")
+    del packed, got, ref_keys
+
+    m = dist.Metrics()
+    kmer.extract_canonical_flat.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    contigs = dist.assemble_distributed(rs.codes, cfg, mesh, metrics=m,
+                                        table_capacity=capacity)
+    wall = time.perf_counter() - t0
+    launches = kmer.extract_canonical_flat.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(len(contigs) == 1, f"CFG-4: {len(contigs)} contigs, expected 1")
+    check(ref.contigs_equal(contigs, want), "CFG-4 contig != genome")
+    check(launches > 0, "CFG-4 main path never launched the kernel")
+    stages = {name: round(s, 4) for name, s in m.stages.items()}
+    log(f"CFG-4 on {mesh}: {wall:.3f} s wall, 1 contig == genome "
+        f"({len(contigs[0])} bp), {windows} windows, {plan.num_batches} "
+        f"batches of {plan.batch_total} reads, c_shard {plan.c_shard}, "
+        f"bucket_cap {plan.bucket_cap}, kernel launches {launches}, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
+    log("CFG-4 stages (s): " + json.dumps(stages))
+    log("CFG-4 counters: " + json.dumps(
+        {n: int(v) for n, v in m.counters.items()}))
+    mini_bytes = plan.num_batches * dist._a2a_count_bytes_per_step(
+        mesh.size, k, dist._bucket_cap_for(plan.per_dev * 70, mesh.size, k, 15),
+        15)
+    log(f"CFG-4 routed bytes: per-window {int(m.counters['a2a_bytes_count'])}"
+        f" (run), minimizer m=15 {mini_bytes} (same plan, its buffer "
+        f"shapes)")
+
+    t0 = time.perf_counter()
+    gathered = dist.distributed_count_table(rs.codes, cfg, mesh,
+                                            table_capacity=capacity)
+    torch.cuda.synchronize(dev)
+    t_dist = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    single = pipeline.count_reads_device(rs.codes, cfg, device=dev,
+                                         table_capacity=capacity)
+    torch.cuda.synchronize(dev)
+    t_single = time.perf_counter() - t0
+    check(tables_equal(torch, gathered, single),
+          "CFG-4: gathered 4-shard table != single-device table")
+    log(f"CFG-4 gathered table == single-device table "
+        f"({int(single.num_unique)} unique k-mers); count on 4 shards "
+        f"{t_dist:.3f} s, on one device {t_single:.3f} s")
+    del gathered, single
+
+    # routing share of one streamed batch, at the run's shapes
+    packed, _, nv = dist._stream_batch(mesh, rs.codes, plan, 0, False)
+    owned = dist._make_owned_keys(mesh, k, 100, plan.bucket_cap, None)
+    step = dist.make_distributed_stream_count(mesh, k, plan.per_dev, 100,
+                                              plan.bucket_cap)
+    tables = [count_torch.empty_table(plan.c_shard, 1, d_)
+              for d_ in mesh.devices]
+    route_ms = time_cuda(torch, lambda: owned(packed, nv), 5)
+    step_ms = time_cuda(torch, lambda: step(tables, packed, nv), 5)
+    log(f"CFG-4 one streamed batch ({plan.batch_total} reads on 4 shards): "
+        f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the merge "
+        f"({100 * route_ms / step_ms:.1f}%)")
+    return launches, err
+
+
+def expect_stop(fn) -> None:
+    """Run ``fn``, which must end in the counters' injected stop."""
+    try:
+        fn()
+    except RuntimeError as e:
+        check("fault injection" in str(e), f"unexpected error: {e}")
+        return
+    check(False, "the injected stop did not happen")
+
+
+def phase_resume(torch, ref, pipeline, dist, mesh_mod, reads, capacity, dev):
+    """CFG-2's reads stream in 9 batches (4 shards: 580k reads and 40.6M
+    windows a shard, past DIST_STREAM_WINDOWS); stop after batch 5, resume
+    from the batch-3 snapshot."""
+    cfg = ref.AssemblyConfig(k=31, read_len=100)
+    mesh = mesh_mod.build_mesh(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "mid.npz")
+        runs = [
+            ("one device", lambda **kw: pipeline.count_reads_device(
+                reads, cfg, device=dev, table_capacity=capacity, **kw)),
+            ("4 shards", lambda **kw: dist.distributed_count_table(
+                reads, cfg, mesh, table_capacity=capacity, **kw)),
+        ]
+        for name, count in runs:
+            full = count()
+            expect_stop(lambda: count(stream_checkpoint=ck,
+                                      stream_checkpoint_every=3,
+                                      abort_after_batch=5))
+            resumed = count(resume_stream_from=ck)
+            check(tables_equal(torch, resumed, full),
+                  f"{name}: resumed table != uninterrupted table")
+            log(f"resume, {name}: stopped after 5 of 9 batches, resumed from "
+                "the batch-3 snapshot, table equal to the uninterrupted run")
+            del full, resumed
 
 
 def main() -> int:
@@ -221,6 +412,8 @@ def main() -> int:
     import genome_assembler_tpu_torch.reference as ref
     from genome_assembler_tpu_torch.models import pipeline
     from genome_assembler_tpu_torch.ops import _build, kmer_torch as kmer
+    from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
+    from genome_assembler_tpu_torch.parallel import pipeline as dist
 
     dev = torch.device("cuda", 0)
     kind = card_info(torch)
@@ -232,7 +425,15 @@ def main() -> int:
 
     err, ms, plain_ms = phase_kernel(torch, ref, kmer, dev)
     phase_oracle(torch, ref, pipeline, dev)
-    launches = phase_cfg2(torch, ref, pipeline, kmer, dev)
+    launches, cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline, kmer,
+                                                dev)
+    phase_mesh_cfg1(torch, ref, dist, mesh_mod)
+    cfg4_launches, cfg4_err = phase_cfg4(torch, ref, pipeline, dist,
+                                         mesh_mod, kmer, dev)
+    launches += cfg4_launches
+    err = max(err, cfg4_err)
+    phase_resume(torch, ref, pipeline, dist, mesh_mod, cfg2_reads, cfg2_cap,
+                 dev)
     check("jax" not in sys.modules, "JAX was imported")
 
     print(json.dumps({"kernels": [{

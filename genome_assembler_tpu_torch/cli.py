@@ -2,10 +2,15 @@
 
     ga-torch assemble --reads reads.txt -k 31 --out contigs.fa
     ga-torch assemble --preset toy10k --coverage 100 -k 25   # simulate + assemble
+    ga-torch assemble --reads reads.txt --backend dist --devices 4   # 4 shards
+    ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
     python -m genome_assembler_tpu_torch.cli assemble --device cuda ...
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
-(exit 2) instead of running on the CPU. Read parsing, FASTA output and
+(exit 2) instead of running on the CPU. ``--backend dist`` shards the
+count over ``--devices`` shards placed round-robin on the visible GPUs
+(``--device cuda``), on one named device (``cuda:N``) or on the CPU
+(``cpu``). Read parsing, FASTA output and
 the read simulator are the reference package's (``genome_assembler_tpu
 .cli``, ``utils.io_native``, ``utils.simulate``), which import no JAX.
 """
@@ -42,6 +47,19 @@ def _load_reads(path: str) -> np.ndarray:
     return reads
 
 
+def _batch(args) -> dict:
+    return {"batch_reads": args.batch_reads} if args.batch_reads else {}
+
+
+def _dist_mesh(args, device):
+    """The mesh for --backend dist: --devices shards over every visible
+    GPU (``--device cuda``) or over the one named device."""
+    from .parallel.mesh import build_mesh
+
+    devices = None if args.device == "cuda" else [device]
+    return build_mesh(args.devices, devices=devices)
+
+
 def cmd_assemble(args) -> int:
     from genome_assembler_tpu.host.traverse import (
         emit_contigs_euler_with_cov,
@@ -53,6 +71,9 @@ def cmd_assemble(args) -> int:
     from .utils.device import resolve_device
 
     device = resolve_device(args.device)  # fails before any work
+    mesh = _dist_mesh(args, device) if args.backend == "dist" else None
+    if args.minimizer_len is not None and mesh is None:
+        raise ValueError("--minimizer-len needs --backend dist")
     t0 = time.perf_counter()
     reads = _load_reads(args.reads) if args.reads else _simulated_reads(args)[0]
     cfg = AssemblyConfig(
@@ -61,19 +82,28 @@ def cmd_assemble(args) -> int:
         tip_len=args.tip_len,
         bubble_len=args.bubble_len,
         read_len=reads.shape[1],
+        **_batch(args),
     )
     metrics = Metrics()
-    _, graph = assemble_torch(
-        reads,
-        cfg,
-        device=device,
-        table_capacity=args.table_capacity,
+    common = dict(
         metrics=metrics,
         checkpoint=args.checkpoint,
         resume_from=args.resume_from,
         return_graph=True,
         emit=args.emit,
+        table_capacity=args.table_capacity,
+        stream_checkpoint_every=args.stream_checkpoint_every,
     )
+    if mesh is None:
+        _, graph = assemble_torch(reads, cfg, device=device, **common)
+        where = f"torch {device}"
+    else:
+        from .parallel.pipeline import assemble_distributed
+
+        _, graph = assemble_distributed(
+            reads, cfg, mesh, minimizer_len=args.minimizer_len, **common
+        )
+        where = f"dist: {mesh}"
     with_cov = (
         emit_contigs_euler_with_cov(graph)
         if args.emit == "euler"
@@ -86,16 +116,16 @@ def cmd_assemble(args) -> int:
         # is against a TPU peak, so no derived rates are written
         import json
 
+        report = {
+            "device": str(device),
+            "stages_s": metrics.stages,
+            "counters": metrics.counters,
+        }
+        if mesh is not None:
+            report["shards"] = mesh.size
+            report["shard_devices"] = [str(d) for d in mesh.devices]
         with open(args.metrics_out, "w") as fh:
-            json.dump(
-                {
-                    "device": str(device),
-                    "stages_s": metrics.stages,
-                    "counters": metrics.counters,
-                },
-                fh,
-                indent=2,
-            )
+            json.dump(report, fh, indent=2)
             fh.write("\n")
     out = open(args.out, "w") if args.out else sys.stdout
     try:
@@ -106,9 +136,25 @@ def cmd_assemble(args) -> int:
     total = sum(len(c) for c in contigs)
     print(
         f"assembled {reads.shape[0]} reads -> {len(contigs)} contig(s), "
-        f"{total} bp total in {dt:.2f}s [torch {device}]",
+        f"{total} bp total in {dt:.2f}s [{where}]",
         file=sys.stderr,
     )
+    return 0
+
+
+def cmd_reshard(args) -> int:
+    """Rewrite a mid-stream sharded checkpoint for another shard count
+    (host-side only: no device work, no recounting)."""
+    from .parallel.pipeline import reshard_sharded_stream_checkpoint
+
+    reads = _load_reads(args.reads)
+    cfg = AssemblyConfig(k=args.k, read_len=reads.shape[1], **_batch(args))
+    reshard_sharded_stream_checkpoint(
+        args.infile, args.out, reads.shape, cfg, args.devices,
+        table_capacity=args.table_capacity,
+    )
+    print(f"resharded {args.infile} -> {args.out} for {args.devices} shards",
+          file=sys.stderr)
     return 0
 
 
@@ -131,16 +177,48 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--table-capacity", type=int, default=None,
                     help="unique-k-mer capacity of the streaming count table "
                     "(overflow is a flagged error, never silent)")
+    pa.add_argument("--batch-reads", type=int, default=None,
+                    help="reads per streamed batch (dist: per global batch, "
+                    "split over the shards)")
     pa.add_argument("--checkpoint", default=None,
                     help="save the counted k-mer table (.npz) here")
     pa.add_argument("--resume-from", default=None,
-                    help="skip counting: load a stage-boundary table "
-                    "checkpoint written by ga-torch or ga-tpu")
+                    help="restart from a checkpoint written by ga-torch or "
+                    "ga-tpu: a stage-boundary one skips counting, a "
+                    "mid-stream one continues counting from its cursor")
+    pa.add_argument("--stream-checkpoint-every", type=int, default=0,
+                    help="with --checkpoint: also snapshot the streaming "
+                    "counter's table and batch cursor every N batches")
     pa.add_argument("--metrics-out", default=None,
                     help="write per-stage seconds (JSON) here")
     pa.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu; never falls back")
+    pa.add_argument("--backend", choices=["torch", "dist"], default="torch",
+                    help="torch: one device (default); dist: the count is "
+                    "hash-sharded over --devices shards")
+    pa.add_argument("--devices", type=int, default=None,
+                    help="shard count for --backend dist (default: one per "
+                    "visible GPU); a multiple of the device count")
+    pa.add_argument("--minimizer-len", type=int, default=None,
+                    help="--backend dist: route minimizer super-k-mer "
+                    "records instead of per-window keys (try 15 for k=31)")
     pa.set_defaults(fn=cmd_assemble)
+
+    rp = sub.add_parser(
+        "reshard", aliases=["reshard-checkpoint"],
+        help="rewrite a mid-stream sharded checkpoint for another shard "
+        "count (resume a stopped distributed count on fewer or more shards)",
+    )
+    rp.add_argument("infile", help="mid-stream sharded checkpoint (.npz)")
+    rp.add_argument("--out", required=True, help="rewritten checkpoint")
+    rp.add_argument("--devices", type=int, required=True,
+                    help="shard count the resumed run will use")
+    rp.add_argument("--reads", required=True,
+                    help="the original reads file (its shape must match)")
+    rp.add_argument("-k", type=int, default=31)
+    rp.add_argument("--batch-reads", type=int, default=None)
+    rp.add_argument("--table-capacity", type=int, default=None)
+    rp.set_defaults(fn=cmd_reshard)
     return p
 
 

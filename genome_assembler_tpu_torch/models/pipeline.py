@@ -12,7 +12,9 @@ Counterpart of ``genome_assembler_tpu/models/pipeline.py::assemble_tpu``:
 Reads are packed on the host (4 bases per byte, ambiguous bases as a
 separate bit plane) and uploaded per batch; everything from extraction
 to the spelling reduction stays on the device. Uploads are synchronous.
-Even k takes the reference's host-dict graph branch.
+Even k takes the reference's host-dict graph branch. The streaming
+counter can snapshot its table and batch cursor mid-stream and resume
+from such a snapshot, in the reference's format.
 """
 
 from __future__ import annotations
@@ -50,12 +52,16 @@ SINGLE_SHOT_WINDOWS = 1 << 27
 
 
 @contextlib.contextmanager
-def _stage(m: Metrics, name: str, device: torch.device):
-    """Wall time of one stage, closed by a device synchronise so queued
-    kernels are charged to the stage that queued them."""
+def timed_stage(m: Metrics, name: str, devices):
+    """Wall time of one stage, closed by a synchronise of ``devices`` (one
+    device or several) so queued kernels are charged to the stage that
+    queued them."""
     t0 = time.perf_counter()
     yield
-    synchronize(device)
+    if isinstance(devices, torch.device):
+        devices = [devices]
+    for dev in dict.fromkeys(devices):
+        synchronize(dev)
     m.stages[name] = m.stages.get(name, 0.0) + time.perf_counter() - t0
 
 
@@ -94,12 +100,106 @@ def _stream_step(
     return count_torch.merge_raw_keys(table, keys)
 
 
+def save_stream_checkpoint(
+    table: CountTable, path: str, k: int, *, next_start: int,
+    params: dict[str, int],
+) -> None:
+    """Mid-stream checkpoint: the carried table and the batch cursor, in
+    the reference's format (``models/pipeline.py save_stream_checkpoint``:
+    uint32 words, int32 counts, num_unique, overflow, next_start and the
+    run's ``params``), so either package resumes the other's. ``params``
+    pins everything the resumed table depends on; a resume refuses a
+    mismatch."""
+    words, counts, num, over = count_torch.count_table_to_numpy(table, k)
+    np.savez_compressed(
+        path, words=words, counts=counts, num_unique=num, overflow=over,
+        next_start=np.asarray(next_start),
+        **{name: np.asarray(v) for name, v in params.items()},
+    )
+
+
+_CHECKPOINT_KINDS = {
+    "table": "a finished count; pass it as resume_from to assemble_torch "
+             "or assemble_distributed",
+    "stream": "a single-device mid-stream checkpoint; resume it with "
+              "assemble_torch(resume_from=...) (ga-torch assemble "
+              "--backend torch)",
+    "sharded_stream": "a sharded mid-stream checkpoint; resume it with "
+                      "assemble_distributed(resume_from=...) (ga-torch "
+                      "assemble --backend dist)",
+    "sharded_table": "a sharded-graph table, which the port does not read",
+}
+
+
+def checkpoint_kind(path: str) -> str:
+    """Which of either package's checkpoint .npz files ``path`` is: a key
+    of ``_CHECKPOINT_KINDS``."""
+    with np.load(path) as z:
+        if "next_start" in z.files:
+            return "stream"
+        if "layout" not in z.files:
+            return "table"
+        return "sharded_stream" if "next_batch" in z.files else "sharded_table"
+
+
+def require_checkpoint_kind(path: str, kind: str) -> None:
+    """Refuse, with the way to resume it, a checkpoint of another kind."""
+    got = checkpoint_kind(path)
+    if got != kind:
+        raise ValueError(f"{path} is {_CHECKPOINT_KINDS[got]}")
+
+
+def is_stream_checkpoint(path: str) -> bool:
+    """True if ``path`` is a single-device mid-stream checkpoint."""
+    return checkpoint_kind(path) == "stream"
+
+
+def after_stream_batch(
+    i: int, start: int, n: int, *, every: int, save, abort_after_batch: int
+) -> None:
+    """The cursor policy of both streaming counters, run after batch ``i``
+    of ``n`` in a call that began at batch ``start``: every ``every``
+    batches of the call, bar the last batch, ``save(i + 1)`` snapshots
+    (``save`` None: no snapshots); after ``abort_after_batch`` batches of
+    the call it raises (the tests' stand-in for a killed run)."""
+    done = i + 1 - start
+    if save is not None and every > 0 and done % every == 0 and i + 1 < n:
+        save(i + 1)
+    if abort_after_batch and done >= abort_after_batch:
+        raise RuntimeError(
+            f"fault injection: abort_after_batch={abort_after_batch} "
+            f"reached at batch {i + 1}/{n}"
+        )
+
+
+def load_stream_checkpoint(
+    path: str, device: torch.device | str
+) -> tuple[CountTable, int, dict[str, int]]:
+    """-> (carried table on ``device``, next_start, params)."""
+    require_checkpoint_kind(path, "stream")
+    table_keys = ("words", "counts", "num_unique", "overflow")
+    with np.load(path) as z:
+        table = count_torch.count_table_from_numpy(
+            *(z[name] for name in table_keys), device=resolve_device(device)
+        )
+        params = {
+            name: int(z[name])
+            for name in z.files
+            if name not in table_keys + ("next_start",)
+        }
+        return table, int(z["next_start"]), params
+
+
 def count_reads_device(
     reads: np.ndarray,
     cfg: AssemblyConfig,
     *,
     device: torch.device | str,
     table_capacity: int | None = None,
+    stream_checkpoint: str | None = None,
+    stream_checkpoint_every: int = 0,
+    resume_stream_from: str | None = None,
+    abort_after_batch: int = 0,
 ) -> CountTable:
     """Count canonical k-mers of [B, L] reads on ``device``.
 
@@ -110,6 +210,14 @@ def count_reads_device(
     batch; the first batch counts straight into a table padded to the
     capacity, every later one merges its raw keys into it. The kernel
     takes any batch size, so the short last batch is not padded.
+
+    stream_checkpoint + stream_checkpoint_every=N: every N streamed
+    batches, snapshot the carried table and the batch cursor to
+    ``stream_checkpoint``; resume_stream_from continues from such a
+    snapshot (written by either package) to the same table as an
+    uninterrupted run. The snapshot's k, batch, capacity and read count
+    must match this run's. abort_after_batch=n raises after n batches of
+    this call (the tests' stand-in for a killed run).
     """
     device = resolve_device(device)
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
@@ -122,18 +230,53 @@ def count_reads_device(
         return _upload(pack_codes(rows), device), _upload(inv, device)
 
     if table_capacity is None and total_windows <= SINGLE_SHOT_WINDOWS:
+        if resume_stream_from is not None:
+            raise ValueError(
+                "resume_stream_from requires the streaming path; pass the "
+                "table_capacity the checkpointed run used"
+            )
         packed, inv = upload(reads)
         return _count_batch(packed, length, cfg.k, inv)
 
     capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
     batch = cfg.batch_reads
+    starts = range(0, b, batch)
+    # everything the carried table depends on; the reference's keys, with
+    # its flat merge (stride 1, not bucketed)
+    ck_params = {
+        "k": cfg.k, "batch": batch, "capacity": capacity, "stride": 1,
+        "total_reads": b, "bucketed": 0,
+    }
     table = None
-    for start in range(0, b, batch):
-        packed, inv = upload(reads[start : start + batch])
+    start_idx = 0
+    if resume_stream_from is not None:
+        table, next_start, got = load_stream_checkpoint(
+            resume_stream_from, device
+        )
+        if got != ck_params:
+            raise ValueError(
+                f"mid-stream checkpoint mismatch: saved {got}, this run has "
+                f"{ck_params}; resume requires identical k/batch/capacity/"
+                "read set"
+            )
+        start_idx = next_start // batch
+    def save(next_batch):
+        save_stream_checkpoint(
+            table, stream_checkpoint, cfg.k, next_start=starts[next_batch],
+            params=ck_params,
+        )
+
+    for i in range(start_idx, len(starts)):
+        packed, inv = upload(reads[starts[i] : starts[i] + batch])
         if table is None:
             table = _count_batch(packed, length, cfg.k, inv, out_cap=capacity)
         else:
             table = _stream_step(table, packed, length, cfg.k, inv)
+        after_stream_batch(
+            i, start_idx, len(starts), every=stream_checkpoint_every,
+            save=None if stream_checkpoint is None else save,
+            abort_after_batch=abort_after_batch,
+        )
     if table is None:  # no reads at all
         table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
     return table
@@ -188,17 +331,74 @@ def save_table(table: CountTable, path: str, k: int) -> None:
 
 
 def load_table(path: str, device: torch.device | str) -> CountTable:
-    """Load a stage-boundary checkpoint written by either package."""
+    """Load a stage-boundary checkpoint written by either package; a
+    mid-stream or sharded one is refused with the way to resume it."""
+    require_checkpoint_kind(path, "table")
     with np.load(path) as z:
-        if "next_start" in z.files:
-            raise ValueError(
-                f"{path} is a mid-stream checkpoint; only stage-boundary "
-                "checkpoints (a finished count) can be resumed here"
-            )
         return count_torch.count_table_from_numpy(
             z["words"], z["counts"], z["num_unique"], z["overflow"],
             device=resolve_device(device),
         )
+
+
+def assemble_from_table(
+    table: CountTable,
+    cfg: AssemblyConfig,
+    m: Metrics,
+    dev: torch.device,
+    *,
+    emit: str = "unitigs",
+    checkpoint: str | None = None,
+    return_graph: bool = False,
+):
+    """The back half shared by ``assemble_torch`` and the sharded
+    ``assemble_distributed``: counted table on ``dev`` -> (stage-boundary
+    checkpoint) -> coverage filter -> unitigs -> simplified graph ->
+    contigs."""
+    if table.limbs.shape[1] != n_limbs(cfg.k):
+        raise ValueError(
+            f"the table holds keys of another k ({table.limbs.shape[1]} "
+            f"limb(s), k={cfg.k} needs {n_limbs(cfg.k)})"
+        )
+    if checkpoint is not None:
+        save_table(table, checkpoint, cfg.k)
+    min_count = cfg.min_count or auto_min_count(table)
+    with timed_stage(m, "filter", dev):
+        # compact first: unique k-mers are genome-sized, the counting
+        # capacity is read-stream-sized; every pass below scales with it
+        if not bool(table.overflow):
+            table = count_torch.compact_table(table)
+        table = count_torch.filter_table(table, min_count)
+        table = count_torch.compact_table(table)
+    if cfg.k % 2 == 1:
+        if bool(table.overflow):
+            raise RuntimeError(
+                "k-mer table overflow: rerun with a larger table_capacity"
+            )
+        with timed_stage(m, "compress", dev):
+            dev_unitigs = compress_unitigs_device(table, cfg.k)
+        with timed_stage(m, "spell", dev):
+            ua = spell_device_arrays(dev_unitigs, cfg.k)
+        with timed_stage(m, "simplify", dev):
+            graph = simplify_arrays_to_graph(
+                ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
+            )
+    else:
+        # even k: palindromic k-mers rule out device compression; the
+        # reference's host-dict graph branch
+        with timed_stage(m, "host_graph", dev):
+            counts = table_to_host_counts(table, cfg.k)
+            graph = simplify_counts(
+                counts, cfg.k, cfg.resolved_tip_len,
+                cfg.resolved_bubble_len, min_count,
+            )
+    with timed_stage(m, "traverse", dev):
+        contigs = (
+            emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
+        )
+    if return_graph:
+        return contigs, graph
+    return contigs
 
 
 def assemble_torch(
@@ -212,14 +412,19 @@ def assemble_torch(
     resume_from: str | None = None,
     return_graph: bool = False,
     emit: str = "unitigs",
+    stream_checkpoint_every: int = 0,
 ):
     """End-to-end single-device assembly: reads -> canonical contigs.
 
     device: ``"cuda"`` (default) or ``"cpu"``; CUDA that is not there is
     an error, never a silent CPU run. checkpoint/resume_from: the counted
-    table as a stage-boundary .npz (either package's format). emit:
-    ``"unitigs"`` stops contigs at junctions, ``"euler"`` spells Eulerian
-    walks. Contigs equal ``assemble_tpu``'s and ``assemble_oracle``'s.
+    table as a stage-boundary .npz (either package's format). With
+    stream_checkpoint_every=N > 0 the streaming counter also snapshots
+    its table and batch cursor to ``checkpoint`` every N batches;
+    resume_from detects such a snapshot and continues counting from it.
+    emit: ``"unitigs"`` stops contigs at junctions, ``"euler"`` spells
+    Eulerian walks. Contigs equal ``assemble_tpu``'s and
+    ``assemble_oracle``'s.
     """
     dev = resolve_device(device)
     if emit not in ("unitigs", "euler"):
@@ -232,55 +437,22 @@ def assemble_torch(
         from genome_assembler_tpu.ops.kmer_ref import window_valid_np
 
         m.count("masked_windows", int((~window_valid_np(reads, cfg.k)).sum()))
-    if resume_from is not None:
+    resume_stream = (
+        resume_from is not None and is_stream_checkpoint(resume_from)
+    )
+    if resume_from is not None and not resume_stream:
         table = load_table(resume_from, dev)
-        if table.limbs.shape[1] != n_limbs(cfg.k):
-            raise ValueError(
-                f"checkpoint {resume_from} holds keys of another k "
-                f"({table.limbs.shape[1]} limb(s), k={cfg.k} needs "
-                f"{n_limbs(cfg.k)})"
-            )
     else:
-        with _stage(m, "count", dev):
+        with timed_stage(m, "count", dev):
             table = count_reads_device(
-                reads, cfg, device=dev, table_capacity=table_capacity
+                reads, cfg, device=dev, table_capacity=table_capacity,
+                stream_checkpoint=(
+                    checkpoint if stream_checkpoint_every > 0 else None
+                ),
+                stream_checkpoint_every=stream_checkpoint_every,
+                resume_stream_from=resume_from if resume_stream else None,
             )
-    if checkpoint is not None:
-        save_table(table, checkpoint, cfg.k)
-    min_count = cfg.min_count or auto_min_count(table)
-    with _stage(m, "filter", dev):
-        # compact first: unique k-mers are genome-sized, the counting
-        # capacity is read-stream-sized; every pass below scales with it
-        if not bool(table.overflow):
-            table = count_torch.compact_table(table)
-        table = count_torch.filter_table(table, min_count)
-        table = count_torch.compact_table(table)
-    if cfg.k % 2 == 1:
-        if bool(table.overflow):
-            raise RuntimeError(
-                "k-mer table overflow: rerun with a larger table_capacity"
-            )
-        with _stage(m, "compress", dev):
-            dev_unitigs = compress_unitigs_device(table, cfg.k)
-        with _stage(m, "spell", dev):
-            ua = spell_device_arrays(dev_unitigs, cfg.k)
-        with _stage(m, "simplify", dev):
-            graph = simplify_arrays_to_graph(
-                ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
-            )
-    else:
-        # even k: palindromic k-mers rule out device compression; the
-        # reference's host-dict graph branch
-        with _stage(m, "host_graph", dev):
-            counts = table_to_host_counts(table, cfg.k)
-            graph = simplify_counts(
-                counts, cfg.k, cfg.resolved_tip_len,
-                cfg.resolved_bubble_len, min_count,
-            )
-    with _stage(m, "traverse", dev):
-        contigs = (
-            emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
-        )
-    if return_graph:
-        return contigs, graph
-    return contigs
+    return assemble_from_table(
+        table, cfg, m, dev, emit=emit, checkpoint=checkpoint,
+        return_graph=return_graph,
+    )

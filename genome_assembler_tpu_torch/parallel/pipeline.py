@@ -1,0 +1,689 @@
+"""Hash-sharded counting over a mesh of D shards, and the assembly on top.
+
+Counterpart of ``genome_assembler_tpu/parallel/pipeline.py`` (the flat
+per-shard merge; no merge stride, no bucketed merge, no sharded graph).
+Per shard and read batch:
+
+  1. extract + canonicalize the shard's packed reads (the CUDA kernel on
+     the card, ``ops.kmer_torch.extract_canonical_flat``);
+  2. route each key to its owner ``mix_words(key) % D``
+     (``ops.hash_torch``), or each minimizer super-k-mer record to its
+     minimizer's owner (``ops.superkmer_torch``);
+  3. pack the rows into a fixed [D, bucket_cap, ...] send buffer
+     (``bucket_pack``; overflow is flagged, never silent) and exchange the
+     buffers (``mesh.all_to_all``);
+  4. sort/segment-reduce the received keys into the shard's table.
+
+All occurrences of a canonical k-mer land on one owner, so each shard's
+counts are global counts, and the per-shard tables equal the reference's
+bit for bit. ``distributed_count_table`` gathers the shard tables onto
+shard 0's device and re-counts them with their counts as weights, which
+gives the single-device table; the graph stages then run there.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genome_assembler_tpu.utils.config import AssemblyConfig
+from genome_assembler_tpu.utils.dna import (
+    has_ambiguous,
+    key_words,
+    pack_codes,
+    pack_invalid_mask,
+)
+from genome_assembler_tpu.utils.metrics import Metrics
+
+from ..models.pipeline import (
+    after_stream_batch,
+    assemble_from_table,
+    checkpoint_kind,
+    load_table,
+    require_checkpoint_kind,
+    timed_stage,
+)
+from ..ops import count_torch
+from ..ops.count_torch import CountTable
+from ..ops.hash_torch import mix_words, owner_of
+from ..ops.kmer_torch import (
+    extract_canonical_flat,
+    unpack_codes,
+    unpack_invalid_mask,
+)
+from ..ops.superkmer_torch import (
+    extract_from_records,
+    from_int32_bits,
+    mean_run,
+    span_words,
+    superkmer_records,
+    to_int32_bits,
+    window_minimizers,
+)
+from ..utils.keys import SENTINEL, is_sentinel, n_limbs
+from ..utils.keys import snug_capacity
+from .mesh import Mesh, all_gather, all_to_all, any_reduce, axis_size
+from .mesh import build_mesh, num_hosts, scatter_rows
+
+# Above this many windows per shard, the counter streams read batches into
+# carried per-shard tables instead of counting the whole read set at once
+# (the reference's default; tests lower it to force the streamed path).
+DIST_STREAM_WINDOWS = 1 << 24
+
+
+def bucket_pack(
+    values: torch.Tensor,
+    owner: torch.Tensor,
+    valid: torch.Tensor,
+    d: int,
+    cap: int,
+    fill: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pack [N, C] rows into a [d, cap, C] send buffer by owner.
+
+    Rows sort by (invalid, owner); each owner's run is gathered into its
+    bucket and the unused lanes hold ``fill`` (``SENTINEL`` for key limbs,
+    -1 for int32 record lanes). Returns (send, overflow): overflow is a
+    0-d bool set when some owner's run is longer than ``cap`` (its tail
+    is dropped). Order inside a bucket is unspecified, as in the
+    reference.
+    """
+    n = values.shape[0]
+    dev = values.device
+    shape = (d, cap) + tuple(values.shape[1:])
+    if n == 0:
+        return (torch.full(shape, fill, dtype=values.dtype, device=dev),
+                torch.zeros((), dtype=torch.bool, device=dev))
+    key_sorted, order = torch.sort(torch.where(valid, owner, d), stable=True)
+    # run bounds by binary search (no host sync, unlike bincount on CUDA)
+    bounds = torch.searchsorted(
+        key_sorted, torch.arange(d + 1, dtype=key_sorted.dtype, device=dev)
+    )
+    starts = bounds[:d]
+    per = bounds[1:] - starts
+    overflow = (per > cap).any()
+    slot = torch.arange(cap, device=dev)
+    in_run = slot[None, :] < per[:, None]
+    src = torch.where(in_run, starts[:, None] + slot[None, :], 0)
+    send = values[order[src.reshape(-1)]].reshape(shape)
+    mask = in_run.reshape((d, cap) + (1,) * (values.dim() - 1))
+    return torch.where(mask, send, fill), overflow
+
+
+def _window_bad(bad: torch.Tensor, k: int) -> torch.Tensor:
+    """[B, L] bad bases -> [B, L-k+1] windows touching one."""
+    wc = bad.shape[1] - k + 1
+    out = bad[:, :wc]
+    for j in range(1, k):
+        out = out | bad[:, j : j + wc]
+    return out
+
+
+def _make_owned_keys(
+    mesh: Mesh, k: int, read_len: int, bucket_cap: int,
+    minimizer_len: int | None,
+):
+    """The shared front half of the one-shot and streamed counters:
+    per-shard packed reads -> (per-shard received raw keys, sentinel =
+    empty lane; per-shard routing-overflow flags)."""
+    d = axis_size(mesh)
+    wc = read_len - k + 1
+
+    def owned_keys_minimizer(packed, n_valid, inv):
+        sw = span_words(k)
+        sends, ovfs = [], []
+        for i in range(d):
+            codes = unpack_codes(packed[i], read_len)
+            b = codes.shape[0]
+            row_ok = torch.arange(b, device=codes.device) < n_valid[i]
+            wv = row_ok[:, None].expand(b, wc)
+            if inv is not None:
+                wv = wv & ~_window_bad(unpack_invalid_mask(inv[i], read_len), k)
+            hmin, mpos = window_minimizers(codes, k, minimizer_len)
+            brk, run, sub, _ = superkmer_records(codes, k, hmin, mpos, wv)
+            n = b * wc
+            rec = torch.cat(
+                [to_int32_bits(sub.reshape(n, sw)),
+                 run.reshape(n, 1).to(torch.int32)],
+                dim=1,
+            )
+            send, ovf = bucket_pack(
+                rec, hmin.reshape(n) % d, brk.reshape(n), d, bucket_cap, -1
+            )
+            sends.append(send)
+            ovfs.append(ovf)
+        keys = []
+        for recv in all_to_all(mesh, sends):
+            kk, _ = extract_from_records(
+                from_int32_bits(recv[:, :sw]), recv[:, sw].to(torch.int64), k
+            )
+            keys.append(kk)
+        return keys, ovfs
+
+    def owned_keys(packed, n_valid, inv=None):
+        if minimizer_len is not None:
+            return owned_keys_minimizer(packed, n_valid, inv)
+        sends, ovfs = [], []
+        for i in range(d):
+            kk = extract_canonical_flat(
+                packed[i], read_len, k, n_valid[i],
+                None if inv is None else inv[i],
+            )
+            if d == 1:
+                # single-owner mesh: every key is already home, no routing
+                return [kk], [torch.zeros((), dtype=torch.bool,
+                                          device=kk.device)]
+            send, ovf = bucket_pack(
+                kk, owner_of(kk, k, d), ~is_sentinel(kk), d, bucket_cap,
+                SENTINEL,
+            )
+            sends.append(send)
+            ovfs.append(ovf)
+        return all_to_all(mesh, sends), ovfs
+
+    return owned_keys
+
+
+def make_distributed_count(
+    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
+    bucket_cap: int, minimizer_len: int | None = None,
+):
+    """The one-shot counting step.
+
+    Returns fn(packed [per-shard [B, ceil(L/4)] uint8], n_valid [per-shard
+    int][, inv]) -> (per-shard CountTable, 0-d bool overflow on shard 0's
+    device). Under minimizer routing each shard's table is truncated to a
+    window-scale capacity (overflow flagged), as in the reference.
+    """
+    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
+
+    def step(packed, n_valid, inv=None):
+        keys, route_ovf = owned(packed, n_valid, inv)
+        tables = []
+        for kk in keys:
+            table = count_torch.count_keys(kk)
+            if minimizer_len is not None:
+                out_cap = min(
+                    kk.shape[0],
+                    int(batch_per_device * (read_len - k + 1) * 1.5) + 256,
+                )
+                if out_cap < table.limbs.shape[0]:
+                    table = count_torch.resize_table(table, out_cap)
+            tables.append(table)
+        overflow = any_reduce(
+            mesh, [ro | t.overflow for ro, t in zip(route_ovf, tables)]
+        )
+        return tables, overflow
+
+    return step
+
+
+def make_distributed_stream_count(
+    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
+    bucket_cap: int, minimizer_len: int | None = None,
+):
+    """Streamed variant: fn(tables, packed, n_valid[, inv]) -> tables, each
+    shard's received raw keys weighted-merged into its carried table
+    (``count_torch.merge_raw_keys``). A table's overflow flag also
+    accumulates routing overflow; check it after the last batch."""
+    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
+
+    def step(tables, packed, n_valid, inv=None):
+        keys, route_ovf = owned(packed, n_valid, inv)
+        out = []
+        for table, kk, ro in zip(tables, keys, route_ovf):
+            merged = count_torch.merge_raw_keys(table, kk)
+            out.append(merged._replace(overflow=merged.overflow | ro))
+        return out
+
+    return step
+
+
+def _a2a_count_bytes_per_step(
+    d: int, k: int, bucket_cap: int, minimizer_len: int | None
+) -> int:
+    """Bytes one routing step sends, summed over shards: every shard
+    sends a [D, bucket_cap, row] buffer, so D x D x bucket_cap rows. A
+    row is the port's real send-buffer row: the key's int64 limbs, or a
+    record's span_words(k) + 1 int32 columns. Zero when d == 1 (no
+    routing)."""
+    if d == 1:
+        return 0
+    if minimizer_len is not None:
+        row = 4 * (span_words(k) + 1)
+    else:
+        row = 8 * n_limbs(k)
+    return d * d * bucket_cap * row
+
+
+def _bucket_cap_for(windows: int, d: int, k: int,
+                    minimizer_len: int | None) -> int:
+    """Routing-bucket capacity for one shard's window count + skew slack
+    (the reference's sizing, so both packages pick the same caps)."""
+    if minimizer_len is not None:
+        return int(windows / mean_run(k, minimizer_len) / d * 1.6) + 128
+    return int(windows / d * 1.5) + 64
+
+
+class _StreamPlan:
+    """Every shape decision of one streamed run, from (read-set shape, cfg,
+    mesh size, knobs): the reference's plan with the flat per-shard merge
+    (``bucketed`` 0, ``stride`` 1). The resharder rebuilds the plan a
+    resumed run will compute, and ``ck_params`` (equal to the reference's
+    for the same run) pins it into every mid-stream checkpoint."""
+
+    def __init__(self, b, length, cfg, d, bucket_cap, minimizer_len,
+                 table_capacity):
+        wc = length - cfg.k + 1
+        self.per_dev = max(1, cfg.batch_reads // d)
+        self.batch_total = self.per_dev * d
+        self.num_batches = -(-b // self.batch_total)
+        cap_global = table_capacity or min(b * wc, 1 << 26)
+        self.c_shard = snug_capacity(int(cap_global / d * 1.3) + 64)
+        self.bucket_cap = (
+            bucket_cap
+            if bucket_cap is not None
+            else _bucket_cap_for(self.per_dev * wc, d, cfg.k, minimizer_len)
+        )
+        self.ck_params = {
+            "d": d,
+            "k": cfg.k,
+            "batch_total": self.batch_total,
+            "c_shard": self.c_shard,
+            "stride": 1,
+            "total_reads": b,
+            "bucket_cap": self.bucket_cap,
+            "bucketed": 0,
+            # a key's owner depends on the routing (its hash, or its
+            # minimizer's): resuming under another would split keys
+            "minimizer": 0 if minimizer_len is None else minimizer_len,
+        }
+
+
+def save_sharded_stream_checkpoint(
+    tables: list[CountTable], path: str, k: int, *, next_batch: int,
+    params: dict[str, int],
+) -> None:
+    """Mid-stream checkpoint of the sharded streaming counter in the
+    reference's format: per-shard tables concatenated (uint32 words
+    [D*C, W], int32 counts [D*C], int32 num [D], bool ovf [D]), the batch
+    cursor, the layout tag and ``params``. Either package resumes it."""
+    parts = [count_torch.count_table_to_numpy(t, k) for t in tables]
+    np.savez_compressed(
+        path,
+        words=np.concatenate([p[0] for p in parts]),
+        counts=np.concatenate([p[1] for p in parts]),
+        num=np.asarray([p[2] for p in parts], dtype=np.int32),
+        ovf=np.asarray([p[3] for p in parts], dtype=bool),
+        next_batch=np.asarray(next_batch),
+        layout=np.asarray("hash_shards_stream"),
+        **{name: np.asarray(v) for name, v in params.items()},
+    )
+
+
+def is_sharded_stream_checkpoint(path: str) -> bool:
+    return checkpoint_kind(path) == "sharded_stream"
+
+
+def load_sharded_stream_checkpoint(path: str):
+    """-> (arrays {words, counts, num, ovf}, next_batch, params)."""
+    require_checkpoint_kind(path, "sharded_stream")
+    with np.load(path) as z:
+        arrays = {name: z[name] for name in ("words", "counts", "num", "ovf")}
+        params = {
+            name: int(z[name])
+            for name in z.files
+            if name not in ("words", "counts", "num", "ovf", "next_batch",
+                            "layout")
+        }
+        return arrays, int(z["next_batch"]), params
+
+
+def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int) -> list[CountTable]:
+    d = axis_size(mesh)
+    words = arrays["words"].reshape(d, c_shard, -1)
+    counts = arrays["counts"].reshape(d, c_shard)
+    return [
+        count_torch.count_table_from_numpy(
+            words[s], counts[s], arrays["num"][s], arrays["ovf"][s],
+            device=mesh.devices[s],
+        )
+        for s in range(d)
+    ]
+
+
+def reshard_sharded_stream_checkpoint(
+    path_in: str, path_out: str, reads_shape: tuple[int, int],
+    cfg: AssemblyConfig, new_d: int, *, table_capacity: int | None = None,
+) -> None:
+    """Rewrite a mid-stream sharded checkpoint (flat layout) for a mesh of
+    ``new_d`` shards, so a stopped count resumes on the shards that are
+    left. A key's owner is ``mix_words(key) % D``, so this repartitions
+    the counted (key, count) rows on the host, re-sorts each new shard
+    (keys are unique, so the sort is the merge) and writes the snapshot
+    that a ``new_d`` resume of the same read set with the same
+    capacity arguments expects. The batch cursor carries over as consumed
+    reads, so ``cfg.batch_reads`` must give a global batch that divides
+    them. reads_shape: (num_reads, read_len) of the original read set.
+    """
+    b, length = reads_shape
+    arrays, next_batch, got = load_sharded_stream_checkpoint(path_in)
+    if got.get("minimizer", 0):
+        raise ValueError(
+            "checkpoint was written by a minimizer-routed stream; a key's "
+            "owner there is its minimizer's hash, not its own, so it "
+            "cannot be repartitioned by key: resume on the original mesh"
+        )
+    if got.get("bucketed", 0):
+        raise ValueError(
+            "checkpoint holds the bucketed per-shard layout; the port "
+            "reshards only the flat layout"
+        )
+    if got.get("k") != cfg.k or got.get("total_reads") != b:
+        raise ValueError(
+            f"checkpoint {path_in} is for k={got.get('k')}, "
+            f"total_reads={got.get('total_reads')}; this read set has "
+            f"k={cfg.k}, total_reads={b}"
+        )
+    if bool(np.any(arrays["ovf"])):
+        raise ValueError(
+            f"checkpoint {path_in} carries an overflow flag; it cannot be "
+            "resharded (the counts are already unreliable)"
+        )
+    plan = _StreamPlan(b, length, cfg, new_d, None, None, table_capacity)
+    consumed = next_batch * got["batch_total"]
+    if consumed % plan.batch_total:
+        raise ValueError(
+            f"cursor at {consumed} consumed reads does not align with the "
+            f"new global batch of {plan.batch_total} (old batch "
+            f"{got['batch_total']}); pick batch_reads divisible by both "
+            "mesh sizes"
+        )
+    w = key_words(cfg.k)
+    old_d, c_old = got["d"], got["c_shard"]
+    words3 = arrays["words"].reshape(old_d, c_old, w)
+    valid = np.arange(c_old)[None, :] < arrays["num"].reshape(old_d)[:, None]
+    keys_all = words3[valid]
+    counts_all = arrays["counts"].reshape(old_d, c_old)[valid]
+    owner = (
+        mix_words(torch.from_numpy(keys_all.astype(np.int64))) % new_d
+    ).numpy()
+
+    new_words = np.full((new_d, plan.c_shard, w), 0xFFFFFFFF, dtype=np.uint32)
+    new_counts = np.zeros((new_d, plan.c_shard), dtype=np.int32)
+    new_num = np.zeros(new_d, dtype=np.int32)
+    for s in range(new_d):
+        sel = owner == s
+        ks, cs = keys_all[sel], counts_all[sel]
+        if ks.shape[0] > plan.c_shard:
+            raise ValueError(
+                f"resharding to d={new_d} overflows shard {s} "
+                f"(c_shard={plan.c_shard}); pass a larger table_capacity"
+            )
+        # big-endian words: column 0 is the primary sort key
+        order = np.lexsort(tuple(ks[:, i] for i in range(w - 1, -1, -1)))
+        n = ks.shape[0]
+        new_words[s, :n] = ks[order]
+        new_counts[s, :n] = cs[order]
+        new_num[s] = n
+    np.savez_compressed(
+        path_out,
+        words=new_words.reshape(new_d * plan.c_shard, w),
+        counts=new_counts.reshape(-1),
+        num=new_num,
+        ovf=np.zeros(new_d, dtype=bool),
+        next_batch=np.asarray(consumed // plan.batch_total),
+        layout=np.asarray("hash_shards_stream"),
+        **{name: np.asarray(v) for name, v in plan.ck_params.items()},
+    )
+
+
+def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
+                   metrics: Metrics | None):
+    """Pack [D*per_dev, L] host reads and hand each shard its rows on its
+    device: (packed per shard, invalid bits per shard or None)."""
+    packed = pack_codes(rows)
+    h2d = packed.nbytes
+    inv = pack_invalid_mask(rows) if any_invalid else None
+    if inv is not None:
+        h2d += inv.nbytes
+    if metrics is not None:
+        metrics.count("h2d_bytes_reads", h2d)
+    packed_s = scatter_rows(mesh, torch.from_numpy(packed), per_dev)
+    inv_s = (
+        None if inv is None
+        else scatter_rows(mesh, torch.from_numpy(inv), per_dev)
+    )
+    return packed_s, inv_s
+
+
+def _stream_batch(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan, i: int,
+                  any_invalid, metrics: Metrics | None = None):
+    """Batch ``i`` of a streamed run on the shards: (packed per shard,
+    invalid bits per shard or None, n_valid per shard). Only the short
+    tail batch is padded; n_valid masks the padding."""
+    b, length = reads.shape
+    start = i * plan.batch_total
+    rows = reads[start : start + plan.batch_total]
+    if rows.shape[0] < plan.batch_total:
+        rows = np.concatenate(
+            [rows, np.zeros((plan.batch_total - rows.shape[0], length),
+                            np.uint8)]
+        )
+    packed, inv = _upload_shards(mesh, rows, plan.per_dev, any_invalid,
+                                 metrics)
+    n_valid = [int(min(max(b - start - plan.per_dev * s, 0), plan.per_dev))
+               for s in range(axis_size(mesh))]
+    return packed, inv, n_valid
+
+
+def _run_distributed_stream(
+    reads: np.ndarray, cfg: AssemblyConfig, mesh: Mesh,
+    bucket_cap: int | None, minimizer_len: int | None,
+    table_capacity: int | None, metrics: Metrics | None = None,
+    stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
+    resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
+) -> list[CountTable]:
+    """Stream batches of ``cfg.batch_reads`` global reads through
+    :func:`make_distributed_stream_count` into carried per-shard tables.
+
+    table_capacity bounds the GLOBAL unique k-mers; each shard gets
+    capacity/D with hash-skew slack on the snug grid. Routing and table
+    overflow accumulate on the device and raise after the last batch.
+
+    stream_checkpoint + stream_checkpoint_every=N snapshot the shard
+    tables and the batch cursor every N batches; resume_stream_from
+    continues from such a snapshot (same mesh size, k, batching,
+    capacity and routing, enforced). abort_after_batch=n raises after n
+    batches of this call (the tests' stand-in for a killed run).
+    """
+    d = axis_size(mesh)
+    b, length = reads.shape
+    plan = _StreamPlan(b, length, cfg, d, bucket_cap, minimizer_len,
+                       table_capacity)
+    any_invalid = has_ambiguous(reads)
+    a2a_step = _a2a_count_bytes_per_step(d, cfg.k, plan.bucket_cap,
+                                         minimizer_len)
+    step = make_distributed_stream_count(
+        mesh, cfg.k, plan.per_dev, length, plan.bucket_cap, minimizer_len
+    )
+    start_batch = 0
+    if resume_stream_from is not None:
+        arrays, start_batch, got = load_sharded_stream_checkpoint(
+            resume_stream_from
+        )
+        if got != plan.ck_params:
+            raise ValueError(
+                f"sharded mid-stream checkpoint mismatch: saved {got}, this "
+                f"run has {plan.ck_params}; resume requires identical mesh "
+                "size/k/batching/capacity/routing/read set"
+            )
+        tables = _tables_from_arrays(arrays, mesh, plan.c_shard)
+    else:
+        tables = [
+            count_torch.empty_table(plan.c_shard, n_limbs(cfg.k), dev)
+            for dev in mesh.devices
+        ]
+
+    def save(next_batch):
+        save_sharded_stream_checkpoint(
+            tables, stream_checkpoint, cfg.k, next_batch=next_batch,
+            params=plan.ck_params,
+        )
+
+    for i in range(start_batch, plan.num_batches):
+        packed, inv, n_valid = _stream_batch(mesh, reads, plan, i,
+                                             any_invalid, metrics)
+        tables = step(tables, packed, n_valid, inv)
+        if metrics is not None:
+            metrics.count("a2a_bytes_count", a2a_step)
+        after_stream_batch(
+            i, start_batch, plan.num_batches, every=stream_checkpoint_every,
+            save=None if stream_checkpoint is None else save,
+            abort_after_batch=abort_after_batch,
+        )
+    if bool(any_reduce(mesh, [t.overflow for t in tables])):
+        raise RuntimeError(
+            "distributed streaming overflow (routing bucket or table "
+            "shard); increase table_capacity / bucket_cap"
+        )
+    return tables
+
+
+def _run_distributed_step(
+    reads: np.ndarray, cfg: AssemblyConfig, mesh: Mesh,
+    bucket_cap: int | None = None, minimizer_len: int | None = None,
+    table_capacity: int | None = None, metrics: Metrics | None = None,
+    stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
+    resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
+) -> list[CountTable]:
+    """Count over the mesh -> per-shard tables. Streams once a shard's
+    window count exceeds DIST_STREAM_WINDOWS (or to resume); below it one
+    step counts the whole read set, and the streaming checkpoint options
+    do not apply."""
+    d = axis_size(mesh)
+    b, length = reads.shape
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    per_dev = -(-b // d)
+    if (
+        per_dev * (length - cfg.k + 1) > DIST_STREAM_WINDOWS
+        or resume_stream_from is not None
+    ):
+        return _run_distributed_stream(
+            reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity,
+            metrics, stream_checkpoint, stream_checkpoint_every,
+            resume_stream_from, abort_after_batch=abort_after_batch,
+        )
+    if per_dev * d != b:
+        reads = np.concatenate(
+            [reads, np.zeros((per_dev * d - b, length), dtype=np.uint8)]
+        )
+    n_valid = [int(min(max(b - per_dev * s, 0), per_dev)) for s in range(d)]
+    if bucket_cap is None:
+        bucket_cap = _bucket_cap_for(
+            per_dev * (length - cfg.k + 1), d, cfg.k, minimizer_len
+        )
+    step = make_distributed_count(
+        mesh, cfg.k, per_dev, length, bucket_cap, minimizer_len
+    )
+    packed, inv = _upload_shards(mesh, reads, per_dev, has_ambiguous(reads),
+                                 metrics)
+    if metrics is not None:
+        metrics.count(
+            "a2a_bytes_count",
+            _a2a_count_bytes_per_step(d, cfg.k, bucket_cap, minimizer_len),
+        )
+    tables, overflow = step(packed, n_valid, inv)
+    if bool(overflow):
+        raise RuntimeError(
+            "bucket overflow during all-to-all routing; increase bucket_cap"
+        )
+    return tables
+
+
+def distributed_count_table(
+    reads: np.ndarray, cfg: AssemblyConfig, mesh: Mesh, *,
+    bucket_cap: int | None = None, minimizer_len: int | None = None,
+    table_capacity: int | None = None, metrics: Metrics | None = None,
+    stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
+    resume_stream_from: str | None = None, abort_after_batch: int = 0,
+) -> CountTable:
+    """Count reads over the mesh; merge the shard tables into one
+    CountTable on shard 0's device.
+
+    Shards own disjoint hash classes, not key ranges, so the gathered
+    rows re-count once with their counts as weights: a re-sort into the
+    global order, sized by the genome's unique k-mers. The result equals
+    the single-device ``count_reads_device`` table up to ``num_unique``.
+    """
+    tables = _run_distributed_step(
+        reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity, metrics,
+        stream_checkpoint, stream_checkpoint_every, resume_stream_from,
+        abort_after_batch=abort_after_batch,
+    )
+    limbs = all_gather(mesh, [t.limbs for t in tables])
+    counts = all_gather(mesh, [t.counts for t in tables])
+    if metrics is not None:
+        metrics.count(
+            "gather_bytes_table",
+            limbs.element_size() * limbs.numel()
+            + counts.element_size() * counts.numel(),
+        )
+    return count_torch.count_keys(limbs, counts)
+
+
+def assemble_distributed(
+    reads: np.ndarray,
+    cfg: AssemblyConfig,
+    mesh: Mesh | None = None,
+    *,
+    metrics: Metrics | None = None,
+    emit: str = "unitigs",
+    checkpoint: str | None = None,
+    resume_from: str | None = None,
+    return_graph: bool = False,
+    minimizer_len: int | None = None,
+    table_capacity: int | None = None,
+    stream_checkpoint_every: int = 0,
+):
+    """End-to-end assembly with the count sharded over ``mesh`` (default:
+    one shard per visible GPU): the gathered genome-sized table then runs
+    the single-device graph stages on shard 0's device. Contigs equal
+    ``assemble_torch``'s, the reference's ``assemble_distributed``'s and
+    the oracle's.
+
+    checkpoint/resume_from: the gathered table as a stage-boundary .npz
+    (either package's format). With stream_checkpoint_every=N > 0 the
+    streaming counter also snapshots the shard tables and the batch
+    cursor to ``checkpoint`` every N batches; resume_from detects such a
+    snapshot and continues counting from it.
+    """
+    if emit not in ("unitigs", "euler"):
+        raise ValueError(f"emit must be 'unitigs' or 'euler', got {emit!r}")
+    m = metrics if metrics is not None else Metrics()
+    mesh = mesh if mesh is not None else build_mesh()
+    dev = mesh.devices[0]
+    m.count("reads", reads.shape[0])
+    m.count("kmers", reads.shape[0] * (reads.shape[1] - cfg.k + 1))
+    m.count("hosts", num_hosts(mesh))
+    m.count("shards", axis_size(mesh))
+    resume_stream = (
+        resume_from is not None and is_sharded_stream_checkpoint(resume_from)
+    )
+    if resume_from is not None and not resume_stream:
+        table = load_table(resume_from, dev)
+    else:
+        with timed_stage(m, "count", mesh.devices):
+            table = distributed_count_table(
+                reads, cfg, mesh, minimizer_len=minimizer_len,
+                table_capacity=table_capacity, metrics=m,
+                stream_checkpoint=(
+                    checkpoint if stream_checkpoint_every > 0 else None
+                ),
+                stream_checkpoint_every=stream_checkpoint_every,
+                resume_stream_from=resume_from if resume_stream else None,
+            )
+    return assemble_from_table(
+        table, cfg, m, dev, emit=emit, checkpoint=checkpoint,
+        return_graph=return_graph,
+    )

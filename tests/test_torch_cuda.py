@@ -47,3 +47,39 @@ def test_assembly_on_cuda_matches_oracle(cuda_device):
     got = assemble_torch(rs.codes, cfg, device=cuda_device,
                          table_capacity=1 << 17)
     assert got == ref.assemble_oracle(rs.codes, cfg)
+
+
+@pytest.mark.parametrize("minimizer", [None, 15], ids=["per_window", "minimizer"])
+def test_sharded_count_on_cuda_matches_one_device(cuda_device, minimizer):
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+
+    genome = ref.simulate_genome(8000, seed=31)
+    rs = ref.simulate_reads(genome, coverage=40, read_len=100, seed=32,
+                            error_rate=0.01)
+    reads = rs.codes.copy()
+    reads[np.random.default_rng(33).random(reads.shape) < 0.002] = 4
+    cfg = ref.AssemblyConfig(k=31, min_count=3, read_len=100, batch_reads=700)
+    m = mesh.build_mesh(4)
+    assert m.devices[0].type == "cuda"
+    got = pipeline.distributed_count_table(reads, cfg, m, table_capacity=1 << 17,
+                                           minimizer_len=minimizer)
+    want = count_reads_device(reads, cfg, device=cuda_device,
+                              table_capacity=1 << 17)
+    n = int(want.num_unique)
+    assert int(got.num_unique) == n
+    assert torch.equal(got.limbs[:n], want.limbs[:n])
+    assert torch.equal(got.counts[:n], want.counts[:n])
+    assert pipeline.assemble_distributed(
+        reads, cfg, m, minimizer_len=minimizer, table_capacity=1 << 17
+    ) == ref.assemble_oracle(reads, cfg)
+
+
+def test_routing_hash_on_cuda_matches_cpu(cuda_device):
+    from genome_assembler_tpu_torch.ops import hash_torch
+
+    x = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 1 << 62, size=(4096, 2))
+    )
+    assert torch.equal(hash_torch.owner_of(x.to(cuda_device), 41, 4).cpu(),
+                       hash_torch.owner_of(x, 41, 4))

@@ -71,6 +71,12 @@ def test_port_never_imports_jax():
         "cfg = reference.AssemblyConfig(k=21, read_len=60)\n"
         "contigs = assemble_torch(rs.codes, cfg, device='cpu')\n"
         "assert contigs == reference.assemble_oracle(rs.codes, cfg)\n"
+        "from genome_assembler_tpu_torch.parallel import mesh, pipeline\n"
+        "from genome_assembler_tpu_torch.ops import hash_torch, superkmer_torch\n"
+        "m = mesh.build_mesh(4, devices=['cpu'])\n"
+        "for mini in (None, 11):\n"
+        "    assert pipeline.assemble_distributed(\n"
+        "        rs.codes, cfg, m, minimizer_len=mini) == contigs\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
