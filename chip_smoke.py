@@ -23,7 +23,8 @@ result line:
   6. the sharded count on a mesh of 4 shards over the visible GPUs:
      CFG-1's contigs from ``assemble_distributed`` equal the oracle's,
      with per-window and with minimizer (m=15) routing, and the routed
-     bytes of both are printed;
+     bytes of both are printed; CFG-1 through the sharded graph
+     (``assemble_distributed_sharded``) gives the same contigs;
   7. CFG-4 at full size (12,000,000 bp, 100x, 100 bp reads, k=31, table
      capacity snug_capacity(1.5 x genome + 4096)) on 4 shards, streamed:
      the kernel against its plain version, bit-equal, on the inputs its
@@ -35,11 +36,18 @@ result line:
      equals the single-device ``count_reads_device`` table bit for bit;
      one streamed batch is timed with CUDA events with and without its
      merge, for the routing step's share;
-  8. a mid-stream stop and resume on the card (CFG-2 reads, one device
+  8. CFG-4 through the sharded graph on 4 shards
+     (``assemble_distributed_sharded`` with a ``"hash_shards"``
+     checkpoint), the launch counter reset just before it: one contig
+     equal to the genome and to the gathered path's; stage seconds, query
+     rounds, routed bytes and peak memory per card printed; then resumed
+     from the checkpoint with zeroed reads to the same contig;
+  9. a mid-stream stop and resume on the card (CFG-2 reads, one device
      and 4 shards): the resumed table equals the uninterrupted one.
 
 The line before the last is the kernel report (launches summed over the
-two main-path runs, CFG-2 and CFG-4); the last line is
+three main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 JAX is never imported.
 """
@@ -268,6 +276,25 @@ def phase_mesh_cfg1(torch, ref, dist, mesh_mod):
             f"oracle; routed {wire[name]} bytes")
     log(f"CFG-1 routed bytes, per-window / minimizer: "
         f"{wire['per-window'] / wire['minimizer m=15']:.2f}x")
+    m = dist.Metrics()
+    got = dist.assemble_distributed_sharded(reads, cfg, mesh, metrics=m)
+    check(got == want, f"CFG-1 on 4 shards through the sharded graph != "
+          f"assemble_distributed ({len(got)} vs {len(want)} contigs)")
+    log(f"CFG-1 on 4 shards, sharded graph: {len(got)} contig(s) equal to "
+        f"assemble_distributed's and the oracle's; "
+        f"{int(m.counters['a2a_compress_query_rounds'])} query rounds")
+
+
+def reset_peaks(torch, mesh) -> None:
+    for dev in dict.fromkeys(mesh.devices):
+        torch.zeros(1, device=dev)  # a card's allocator starts at first use
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def peaks_gib(torch, mesh) -> list[float]:
+    """Peak allocated GiB of each card the mesh uses."""
+    return [round(torch.cuda.max_memory_allocated(dev) / 2**30, 2)
+            for dev in dict.fromkeys(mesh.devices)]
 
 
 def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
@@ -308,13 +335,13 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
 
     m = dist.Metrics()
     kmer.extract_canonical_flat.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
+    reset_peaks(torch, mesh)
     t0 = time.perf_counter()
     contigs = dist.assemble_distributed(rs.codes, cfg, mesh, metrics=m,
                                         table_capacity=capacity)
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = peaks_gib(torch, mesh)
     check(len(contigs) == 1, f"CFG-4: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-4 contig != genome")
     check(launches > 0, "CFG-4 main path never launched the kernel")
@@ -323,7 +350,7 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
         f"({len(contigs[0])} bp), {windows} windows, {plan.num_batches} "
         f"batches of {plan.batch_total} reads, c_shard {plan.c_shard}, "
         f"bucket_cap {plan.bucket_cap}, kernel launches {launches}, peak "
-        f"device memory {peak / 2**30:.2f} GiB")
+        f"device memory {peak} GiB per card")
     log("CFG-4 stages (s): " + json.dumps(stages))
     log("CFG-4 counters: " + json.dumps(
         {n: int(v) for n, v in m.counters.items()}))
@@ -363,7 +390,59 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
     log(f"CFG-4 one streamed batch ({plan.batch_total} reads on 4 shards): "
         f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the merge "
         f"({100 * route_ms / step_ms:.1f}%)")
-    return launches, err
+    del packed, tables
+    return launches, err, (rs.codes, cfg, capacity, contigs)
+
+
+def phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, reads, cfg,
+                       capacity, gathered):
+    """CFG-4 through the sharded graph on 4 shards with a "hash_shards"
+    checkpoint, then resumed from it with zeroed reads."""
+    import numpy as np
+
+    mesh = mesh_mod.build_mesh(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "cfg4_shards.npz")
+        m = dist.Metrics()
+        kmer.extract_canonical_flat.launches = 0
+        reset_peaks(torch, mesh)
+        t0 = time.perf_counter()
+        contigs = dist.assemble_distributed_sharded(
+            reads, cfg, mesh, metrics=m, table_capacity=capacity,
+            checkpoint=ck,
+        )
+        wall = time.perf_counter() - t0
+        launches = kmer.extract_canonical_flat.launches
+        peak = peaks_gib(torch, mesh)
+        check(len(contigs) == 1,
+              f"CFG-4 sharded graph: {len(contigs)} contigs, expected 1")
+        check(ref.contigs_equal(contigs, gathered),
+              "CFG-4 sharded graph contig != the gathered path's (genome)")
+        check(launches > 0, "CFG-4 sharded graph never launched the kernel")
+        stages = {name: round(s, 4) for name, s in m.stages.items()}
+        log(f"CFG-4 sharded graph on {mesh}: {wall:.3f} s wall incl. the "
+            f"checkpoint write, 1 contig == genome == gathered path's, kernel "
+            f"launches {launches}, peak device memory {peak} GiB per card")
+        log("CFG-4 sharded graph stages (s): " + json.dumps(stages))
+        log("CFG-4 sharded graph counters: " + json.dumps(
+            {n: int(v) for n, v in m.counters.items()}))
+        log(f"CFG-4 sharded graph query rounds run: "
+            f"{int(m.counters['a2a_compress_query_rounds'])} (cap "
+            f"{int(m.counters['a2a_compress_query_rounds_max'])} a pass)")
+
+        m = dist.Metrics()
+        t0 = time.perf_counter()
+        resumed = dist.assemble_distributed_sharded(
+            np.zeros_like(reads), cfg, mesh, metrics=m,
+            table_capacity=capacity, resume_from=ck,
+        )
+        check(resumed == contigs,
+              "CFG-4 sharded graph resumed from its checkpoint != first run")
+        stages = {name: round(s, 4) for name, s in m.stages.items()}
+        log(f"CFG-4 sharded graph resumed from its hash_shards checkpoint "
+            f"with zeroed reads: same contig, {time.perf_counter() - t0:.3f} "
+            f"s; stages (s): {json.dumps(stages)}")
+    return launches
 
 
 def expect_stop(fn) -> None:
@@ -428,10 +507,12 @@ def main() -> int:
     launches, cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline, kmer,
                                                 dev)
     phase_mesh_cfg1(torch, ref, dist, mesh_mod)
-    cfg4_launches, cfg4_err = phase_cfg4(torch, ref, pipeline, dist,
-                                         mesh_mod, kmer, dev)
+    cfg4_launches, cfg4_err, cfg4 = phase_cfg4(torch, ref, pipeline, dist,
+                                               mesh_mod, kmer, dev)
     launches += cfg4_launches
     err = max(err, cfg4_err)
+    launches += phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, *cfg4)
+    del cfg4
     phase_resume(torch, ref, pipeline, dist, mesh_mod, cfg2_reads, cfg2_cap,
                  dev)
     check("jax" not in sys.modules, "JAX was imported")

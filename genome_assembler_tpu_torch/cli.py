@@ -3,6 +3,7 @@
     ga-torch assemble --reads reads.txt -k 31 --out contigs.fa
     ga-torch assemble --preset toy10k --coverage 100 -k 25   # simulate + assemble
     ga-torch assemble --reads reads.txt --backend dist --devices 4   # 4 shards
+    ga-torch assemble --reads reads.txt --backend dist --sharded-graph
     ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
     python -m genome_assembler_tpu_torch.cli assemble --device cuda ...
 
@@ -10,7 +11,8 @@
 (exit 2) instead of running on the CPU. ``--backend dist`` shards the
 count over ``--devices`` shards placed round-robin on the visible GPUs
 (``--device cuda``), on one named device (``cuda:N``) or on the CPU
-(``cpu``). Read parsing, FASTA output and
+(``cpu``); ``--sharded-graph`` keeps the graph stages sharded as well
+instead of gathering the table onto one device. Read parsing, FASTA output and
 the read simulator are the reference package's (``genome_assembler_tpu
 .cli``, ``utils.io_native``, ``utils.simulate``), which import no JAX.
 """
@@ -74,6 +76,8 @@ def cmd_assemble(args) -> int:
     mesh = _dist_mesh(args, device) if args.backend == "dist" else None
     if args.minimizer_len is not None and mesh is None:
         raise ValueError("--minimizer-len needs --backend dist")
+    if args.sharded_graph and mesh is None:
+        raise ValueError("--sharded-graph needs --backend dist")
     t0 = time.perf_counter()
     reads = _load_reads(args.reads) if args.reads else _simulated_reads(args)[0]
     cfg = AssemblyConfig(
@@ -98,12 +102,15 @@ def cmd_assemble(args) -> int:
         _, graph = assemble_torch(reads, cfg, device=device, **common)
         where = f"torch {device}"
     else:
-        from .parallel.pipeline import assemble_distributed
+        from .parallel import pipeline as dist
 
-        _, graph = assemble_distributed(
+        assemble = (dist.assemble_distributed_sharded if args.sharded_graph
+                    else dist.assemble_distributed)
+        _, graph = assemble(
             reads, cfg, mesh, minimizer_len=args.minimizer_len, **common
         )
-        where = f"dist: {mesh}"
+        where = f"dist: {mesh}" + (", sharded graph" if args.sharded_graph
+                                   else "")
     with_cov = (
         emit_contigs_euler_with_cov(graph)
         if args.emit == "euler"
@@ -202,6 +209,9 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--minimizer-len", type=int, default=None,
                     help="--backend dist: route minimizer super-k-mer "
                     "records instead of per-window keys (try 15 for k=31)")
+    pa.add_argument("--sharded-graph", action="store_true",
+                    help="keep the graph sharded through compression "
+                    "(per-device memory ~1/D; --backend dist, odd k)")
     pa.set_defaults(fn=cmd_assemble)
 
     rp = sub.add_parser(

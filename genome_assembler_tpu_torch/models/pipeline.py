@@ -127,7 +127,10 @@ _CHECKPOINT_KINDS = {
     "sharded_stream": "a sharded mid-stream checkpoint; resume it with "
                       "assemble_distributed(resume_from=...) (ga-torch "
                       "assemble --backend dist)",
-    "sharded_table": "a sharded-graph table, which the port does not read",
+    "sharded_table": "a sharded-graph table; resume it with "
+                     "assemble_distributed_sharded(resume_from=...) "
+                     "(ga-torch assemble --backend dist --sharded-graph) "
+                     "on a mesh of its shard count",
 }
 
 
@@ -296,14 +299,21 @@ def table_to_host_counts(table: CountTable, k: int) -> dict[str, int]:
 
 
 def auto_min_count(table: CountTable) -> int:
-    """Coverage-filter threshold at the valley of the multiplicity
-    histogram (the reference heuristic, ``models/pipeline.py
-    auto_min_count``; tests hold the two equal). The histogram is
-    computed on the table's device; only its 1001 bins cross to the host.
-    Returns 1 when there is no valley."""
+    """Coverage-filter threshold of a table (the reference heuristic,
+    ``models/pipeline.py auto_min_count``; tests hold the two equal). The
+    histogram is computed on the table's device; only its 1001 bins
+    cross to the host."""
     if int(table.num_unique) == 0:
         return 1
-    full = count_torch.multiplicity_histogram(table).cpu().numpy()
+    return auto_min_count_hist(
+        count_torch.multiplicity_histogram(table).cpu().numpy()
+    )
+
+
+def auto_min_count_hist(full: np.ndarray) -> int:
+    """Coverage-filter threshold at the valley of a multiplicity
+    histogram (bin i counts the k-mers seen min(i, 1000) times; bin 0 is
+    ignored). Returns 1 when there is no valley."""
     nz = np.nonzero(full)[0]
     if nz.size == 0:
         return 1

@@ -98,7 +98,8 @@ def _doubling(prev: torch.Tensor, steps: int, track: str = "dist"):
 
 def _build_edges(table: CountTable, k: int):
     """Both-strand sorted edge table: (edge_limbs [2C, n_limbs], covs
-    [2C] int32, valid [2C] bool)."""
+    [2C] int32, valid [2C] bool). Edge ids are sorted positions (the
+    sharded graph adds its shard's offset)."""
     c = table.limbs.shape[0]
     is_real = torch.arange(c, device=table.limbs.device) < table.num_unique
     rc = revcomp_words(table.limbs, k)
@@ -178,7 +179,9 @@ def _steps_for(e: int) -> int:
     if e > (1 << 29):
         raise ValueError(
             f"edge table of {e} rows exceeds the int32 pointer-doubling "
-            "range (2^29); use the sharded graph path (--sharded-graph)"
+            "range (2^29); the sharded graph path (assemble_distributed_"
+            "sharded, ga-torch assemble --backend dist --sharded-graph) "
+            "holds 1/D of it per shard under the same global bound"
         )
     return max(1, int(np.ceil(np.log2(max(e, 2)))) + 1)
 
@@ -228,8 +231,12 @@ def compress_unitigs_device(table: CountTable, k: int) -> DeviceUnitigs:
     if 2 * table.limbs.shape[0] >= (1 << 29):
         raise ValueError(
             "edge table too large for device compression "
-            f"({2 * table.limbs.shape[0]} rows >= 2^29); "
-            "reduce table capacity or use the distributed path"
+            f"({2 * table.limbs.shape[0]} rows >= 2^29); reduce the table "
+            "capacity. The gathered assemble_distributed compresses on one "
+            "device too; the sharded graph path (assemble_distributed_"
+            "sharded, ga-torch assemble --backend dist --sharded-graph) "
+            "holds 1/D of the edge table per shard, under the same global "
+            "bound"
         )
     edge_limbs, covs, valid = _build_edges(table, k)
     prev = _link_sortjoin(edge_limbs, valid, k)

@@ -113,7 +113,22 @@ def all_gather(mesh: Mesh, xs: list[torch.Tensor]) -> torch.Tensor:
     return torch.cat([x.to(mesh.devices[0]) for x in xs])
 
 
+def all_gather_replicated(mesh: Mesh, xs: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The reference's ``jax.lax.all_gather``: every shard gets the
+    concatenation of the per-shard tensors on its own device. On a
+    single-device mesh it is one ``torch.cat`` shared by every shard."""
+    if mesh.single_device:
+        return [torch.cat(xs)] * mesh.size
+    return [torch.cat([x.to(dev) for x in xs]) for dev in mesh.devices]
+
+
 def any_reduce(mesh: Mesh, flags: list[torch.Tensor]) -> torch.Tensor:
     """0-d bool on shard 0's device: any shard's flag is set (the
     reference's ``pmax`` over overflow bits)."""
     return all_gather(mesh, [f.reshape(1) for f in flags]).any()
+
+
+def max_reduce(mesh: Mesh, xs: list[torch.Tensor]) -> torch.Tensor:
+    """0-d tensor on shard 0's device: the largest per-shard scalar (the
+    reference's ``pmax`` over int flags, e.g. overflow bitmasks)."""
+    return all_gather(mesh, [x.reshape(1) for x in xs]).max()

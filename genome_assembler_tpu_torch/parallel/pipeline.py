@@ -1,8 +1,8 @@
 """Hash-sharded counting over a mesh of D shards, and the assembly on top.
 
 Counterpart of ``genome_assembler_tpu/parallel/pipeline.py`` (the flat
-per-shard merge; no merge stride, no bucketed merge, no sharded graph).
-Per shard and read batch:
+per-shard merge; no merge stride, no bucketed merge). Per shard and read
+batch:
 
   1. extract + canonicalize the shard's packed reads (the CUDA kernel on
      the card, ``ops.kmer_torch.extract_canonical_flat``);
@@ -18,7 +18,9 @@ All occurrences of a canonical k-mer land on one owner, so each shard's
 counts are global counts, and the per-shard tables equal the reference's
 bit for bit. ``distributed_count_table`` gathers the shard tables onto
 shard 0's device and re-counts them with their counts as weights, which
-gives the single-device table; the graph stages then run there.
+gives the single-device table; the graph stages of ``assemble_distributed``
+then run there. ``assemble_distributed_sharded`` instead filters every
+shard in place and keeps the graph sharded (``parallel/compress.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from genome_assembler_tpu.host.simplify_arrays import simplify_arrays_to_graph
+from genome_assembler_tpu.host.traverse import emit_contigs, emit_contigs_euler
 from genome_assembler_tpu.utils.config import AssemblyConfig
 from genome_assembler_tpu.utils.dna import (
     has_ambiguous,
@@ -38,13 +42,14 @@ from genome_assembler_tpu.utils.metrics import Metrics
 from ..models.pipeline import (
     after_stream_batch,
     assemble_from_table,
+    auto_min_count_hist,
     checkpoint_kind,
     load_table,
     require_checkpoint_kind,
     timed_stage,
 )
 from ..ops import count_torch
-from ..ops.count_torch import CountTable
+from ..ops.count_torch import CountTable, compact_front_sorted
 from ..ops.hash_torch import mix_words, owner_of
 from ..ops.kmer_torch import (
     extract_canonical_flat,
@@ -62,52 +67,21 @@ from ..ops.superkmer_torch import (
 )
 from ..utils.keys import SENTINEL, is_sentinel, n_limbs
 from ..utils.keys import snug_capacity
+from .compress import (
+    OVERFLOW_CAPS,
+    bucket_pack,
+    comm_bytes_estimate,
+    make_sharded_compress,
+    spell_sharded_arrays,
+    wire_bytes,
+)
 from .mesh import Mesh, all_gather, all_to_all, any_reduce, axis_size
-from .mesh import build_mesh, num_hosts, scatter_rows
+from .mesh import build_mesh, max_reduce, num_hosts, scatter_rows
 
 # Above this many windows per shard, the counter streams read batches into
 # carried per-shard tables instead of counting the whole read set at once
 # (the reference's default; tests lower it to force the streamed path).
 DIST_STREAM_WINDOWS = 1 << 24
-
-
-def bucket_pack(
-    values: torch.Tensor,
-    owner: torch.Tensor,
-    valid: torch.Tensor,
-    d: int,
-    cap: int,
-    fill: int,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pack [N, C] rows into a [d, cap, C] send buffer by owner.
-
-    Rows sort by (invalid, owner); each owner's run is gathered into its
-    bucket and the unused lanes hold ``fill`` (``SENTINEL`` for key limbs,
-    -1 for int32 record lanes). Returns (send, overflow): overflow is a
-    0-d bool set when some owner's run is longer than ``cap`` (its tail
-    is dropped). Order inside a bucket is unspecified, as in the
-    reference.
-    """
-    n = values.shape[0]
-    dev = values.device
-    shape = (d, cap) + tuple(values.shape[1:])
-    if n == 0:
-        return (torch.full(shape, fill, dtype=values.dtype, device=dev),
-                torch.zeros((), dtype=torch.bool, device=dev))
-    key_sorted, order = torch.sort(torch.where(valid, owner, d), stable=True)
-    # run bounds by binary search (no host sync, unlike bincount on CUDA)
-    bounds = torch.searchsorted(
-        key_sorted, torch.arange(d + 1, dtype=key_sorted.dtype, device=dev)
-    )
-    starts = bounds[:d]
-    per = bounds[1:] - starts
-    overflow = (per > cap).any()
-    slot = torch.arange(cap, device=dev)
-    in_run = slot[None, :] < per[:, None]
-    src = torch.where(in_run, starts[:, None] + slot[None, :], 0)
-    send = values[order[src.reshape(-1)]].reshape(shape)
-    mask = in_run.reshape((d, cap) + (1,) * (values.dim() - 1))
-    return torch.where(mask, send, fill), overflow
 
 
 def _window_bad(bad: torch.Tensor, k: int) -> torch.Tensor:
@@ -687,3 +661,168 @@ def assemble_distributed(
         table, cfg, m, dev, emit=emit, checkpoint=checkpoint,
         return_graph=return_graph,
     )
+
+
+def _shard_filter_compact(tables: list[CountTable],
+                          min_count: int) -> list[CountTable]:
+    """Per-shard coverage filter + front compaction (no communication):
+    the rows counted at least ``min_count`` times stay, in order, at the
+    front of each shard; sentinel rows with count 0 fill the rest."""
+    out = []
+    for t in tables:
+        keep = t.counts >= min_count
+        out.append(CountTable(
+            limbs=compact_front_sorted(keep, t.limbs, SENTINEL),
+            counts=compact_front_sorted(keep, t.counts, 0),
+            num_unique=keep.sum(),
+            overflow=t.overflow,
+        ))
+    return out
+
+
+def _shard_hist(tables: list[CountTable]) -> np.ndarray:
+    """Multiplicity histogram summed over the shards, the auto threshold's
+    input: each shard's 1001 bins cross to the host, no count column."""
+    return sum(
+        count_torch.multiplicity_histogram(t).cpu().numpy().astype(np.int64)
+        for t in tables
+    )
+
+
+def save_sharded_table(tables: list[CountTable], d: int, k: int,
+                       path: str) -> None:
+    """Checkpoint the hash-sharded count table in the reference's layout
+    (``"hash_shards"``: uint32 words [D*C, W], int32 counts [D*C], d, k);
+    either package resumes it on a mesh of D shards."""
+    parts = [count_torch.count_table_to_numpy(t, k) for t in tables]
+    np.savez_compressed(
+        path,
+        words=np.concatenate([p[0] for p in parts]),
+        counts=np.concatenate([p[1] for p in parts]),
+        d=np.asarray(d),
+        k=np.asarray(k),
+        layout=np.asarray("hash_shards"),
+    )
+
+
+def load_sharded_table(path: str, mesh: Mesh, k: int) -> list[CountTable]:
+    """Restore a sharded-table checkpoint onto the mesh's shards; its D
+    and k must be this run's."""
+    require_checkpoint_kind(path, "sharded_table")
+    d = axis_size(mesh)
+    with np.load(path) as z:
+        if str(z["layout"]) != "hash_shards":
+            raise ValueError(f"{path}: not a sharded-table checkpoint")
+        if int(z["d"]) != d or int(z["k"]) != k:
+            raise ValueError(
+                f"{path}: checkpoint is for d={int(z['d'])}, k={int(z['k'])};"
+                f" this run has d={d}, k={k}"
+            )
+        words = z["words"].reshape(d, -1, z["words"].shape[1])
+        counts = z["counts"].reshape(d, -1)
+    return [
+        count_torch.count_table_from_numpy(
+            words[s], counts[s],
+            int((words[s] != np.uint32(0xFFFFFFFF)).any(axis=1).sum()),
+            False, device=mesh.devices[s],
+        )
+        for s in range(d)
+    ]
+
+
+def assemble_distributed_sharded(
+    reads: np.ndarray,
+    cfg: AssemblyConfig,
+    mesh: Mesh | None = None,
+    *,
+    metrics: Metrics | None = None,
+    emit: str = "unitigs",
+    bucket_cap: int | None = None,
+    checkpoint: str | None = None,
+    resume_from: str | None = None,
+    return_graph: bool = False,
+    minimizer_len: int | None = None,
+    table_capacity: int | None = None,
+    stream_checkpoint_every: int = 0,
+):
+    """Fully sharded assembly: the graph never gathers onto one device.
+
+    Counting, filtering, edge building, successor linking, pointer
+    doubling, numbering and spelling all run shard-wise over ``mesh``
+    (``parallel/compress.py``); per-device memory scales ~1/D and the
+    host receives only packed bases and per-unitig rows. Requires odd k.
+    Contigs equal ``assemble_distributed``'s, the reference's and the
+    oracle's.
+
+    checkpoint/resume_from: the pre-filter hash-sharded count table as
+    .npz (``"hash_shards"``, either package's; the mesh size and k must
+    match on resume). With stream_checkpoint_every=N > 0 the streaming
+    counter also snapshots the shard tables and the batch cursor to
+    ``checkpoint`` every N batches; resume_from detects such a snapshot
+    and continues counting from it.
+    """
+    if cfg.k % 2 == 0:
+        raise ValueError("sharded compression requires odd k")
+    if emit not in ("unitigs", "euler"):
+        raise ValueError(f"emit must be 'unitigs' or 'euler', got {emit!r}")
+    m = metrics if metrics is not None else Metrics()
+    mesh = mesh if mesh is not None else build_mesh()
+    d = axis_size(mesh)
+    m.count("reads", reads.shape[0])
+    m.count("kmers", reads.shape[0] * (reads.shape[1] - cfg.k + 1))
+    m.count("hosts", num_hosts(mesh))
+    m.count("shards", d)
+    resume_stream = (
+        resume_from is not None and is_sharded_stream_checkpoint(resume_from)
+    )
+    if resume_from is not None and not resume_stream:
+        tables = load_sharded_table(resume_from, mesh, cfg.k)
+    else:
+        with timed_stage(m, "count", mesh.devices):
+            tables = _run_distributed_step(
+                reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity,
+                m, checkpoint if stream_checkpoint_every > 0 else None,
+                stream_checkpoint_every,
+                resume_from if resume_stream else None,
+            )
+    if checkpoint is not None:
+        save_sharded_table(tables, d, cfg.k, checkpoint)
+
+    with timed_stage(m, "filter", mesh.devices):
+        min_count = cfg.min_count or auto_min_count_hist(_shard_hist(tables))
+        tables = _shard_filter_compact(tables, min_count)
+        # shrink every shard to one snug uniform capacity
+        kept = int(max_reduce(mesh, [t.num_unique for t in tables]))
+        c_shard = min(max(t.limbs.shape[0] for t in tables),
+                      snug_capacity(kept))
+        tables = [count_torch.resize_table(t, c_shard) for t in tables]
+
+    with timed_stage(m, "compress", mesh.devices):
+        wire = wire_bytes(d, cfg.k, c_shard)
+        m.count("a2a_bytes_compress_link", wire["link"])
+        m.count("a2a_bytes_compress_query_round", wire["query_round"])
+        m.count("a2a_compress_query_rounds_max",
+                comm_bytes_estimate(d, cfg.k, c_shard)["query_rounds_max"])
+        g = make_sharded_compress(mesh, cfg.k, c_shard)(tables)
+        m.count("a2a_compress_query_rounds", g.query_rounds)
+        if g.overflow:
+            which = [name for bit, name in OVERFLOW_CAPS if g.overflow & bit]
+            raise RuntimeError(
+                "sharded compression routing overflow in "
+                f"{'+'.join(which)} (bits {g.overflow}); increase the "
+                "corresponding slack cap (parallel/compress.py)"
+            )
+    with timed_stage(m, "spell", mesh.devices):
+        ua = spell_sharded_arrays(
+            mesh, cfg.k, c_shard, g.num_unitigs, g.valid, g.uid, g.pos,
+            g.cov, g.heads, g.edge_limbs, metrics=m,
+        )
+    with timed_stage(m, "simplify", mesh.devices):
+        graph = simplify_arrays_to_graph(
+            ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
+        )
+    with timed_stage(m, "traverse", mesh.devices):
+        contigs = (
+            emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
+        )
+    return (contigs, graph) if return_graph else contigs

@@ -114,6 +114,17 @@ def test_histogram_and_auto_min_count():
     assert auto_min_count(empty) == 1
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("cols", [1, 2, 3, 4])
+def test_take_rows_equals_indexing(cols, dtype):
+    rng = np.random.default_rng(cols)
+    x = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, (500, cols))).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, 500, 1200))
+    got = count_torch.take_rows(x, idx)
+    assert got.dtype == dtype and torch.equal(got, x[idx])
+    assert torch.equal(count_torch.take_rows(x[:, 0], idx), x[idx, 0])
+
+
 def test_numpy_bridge_round_trip():
     k = 41
     jt = count_jax.count_keys(jnp.asarray(_keys(8, k)))

@@ -83,3 +83,31 @@ def test_routing_hash_on_cuda_matches_cpu(cuda_device):
     )
     assert torch.equal(hash_torch.owner_of(x.to(cuda_device), 41, 4).cpu(),
                        hash_torch.owner_of(x, 41, 4))
+
+
+def test_sharded_graph_on_cuda_matches_cpu(cuda_device):
+    """The sharded graph on 4 CUDA shards: every per-shard output and the
+    contigs equal the same run's on 4 CPU shards."""
+    from genome_assembler_tpu_torch.parallel import compress, mesh, pipeline
+
+    genome = ref.simulate_genome(6000, seed=41)
+    rs = ref.simulate_reads(genome, coverage=30, read_len=100, seed=42,
+                            error_rate=0.01)
+    cfg = ref.AssemblyConfig(k=31, min_count=2, read_len=100)
+    runs = []
+    for m in (mesh.build_mesh(4), mesh.build_mesh(4, devices=["cpu"])):
+        tables = pipeline._shard_filter_compact(
+            pipeline._run_distributed_step(rs.codes, cfg, m), cfg.min_count
+        )
+        g = compress.make_sharded_compress(
+            m, cfg.k, tables[0].limbs.shape[0]
+        )(tables)
+        runs.append((g, pipeline.assemble_distributed_sharded(rs.codes, cfg, m)))
+    (gpu, gpu_contigs), (cpu, cpu_contigs) = runs
+    assert gpu.valid[0].is_cuda
+    for field in ("valid", "uid", "pos", "cov", "last_base", "heads",
+                  "edge_limbs"):
+        for a, b in zip(getattr(gpu, field), getattr(cpu, field)):
+            assert torch.equal(a.cpu(), b), field
+    assert (gpu.num_unitigs, gpu.overflow) == (cpu.num_unitigs, cpu.overflow)
+    assert gpu_contigs == cpu_contigs == ref.assemble_oracle(rs.codes, cfg)

@@ -77,6 +77,7 @@ def test_port_never_imports_jax():
         "for mini in (None, 11):\n"
         "    assert pipeline.assemble_distributed(\n"
         "        rs.codes, cfg, m, minimizer_len=mini) == contigs\n"
+        "assert pipeline.assemble_distributed_sharded(rs.codes, cfg, m) == contigs\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('ok')\n"
     )
