@@ -10,9 +10,14 @@ result line:
      power limit;
   2. build the extraction kernel from ``genome_assembler_tpu_torch/csrc``;
   3. the kernel against its plain torch version on the card, bit-equal:
-     k in {21, 25, 31, 41, 63} with ambiguous bases and n_valid < B, and
-     the main path's batch shape (262,144 reads x 100 bp, k=31); then both
-     timed at that shape with CUDA events;
+     k in {21, 25, 31, 41, 63} with ambiguous bases and n_valid < B, the
+     edge shapes of its block layout (one window a read, read lengths off
+     a multiple of 4 and 8, one read, ragged last blocks, n_valid 0 and
+     inside a block, reads of only Ns, k in {2, 31, 32, 63}, a shape that
+     opts in to more shared memory, a shape it must refuse), and the main
+     path's batch shape (262,144 reads x 100 bp, k=31); then both timed at
+     that shape with CUDA events, beside the least time the card could
+     take for the same bytes;
   4. contigs against the NumPy oracle, bit-equal: CFG-0 (10 kb, 100x,
      k=25), CFG-1 (48.5 kb, 1% errors, k=31, min_count 5) and a two-limb
      case (150 kb, 50x, k=41);
@@ -46,10 +51,10 @@ result line:
      and 4 shards): the resumed table equals the uninterrupted one.
 
 The line before the last is the kernel report (launches summed over the
-three main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph); the
-last line is
+three main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, and
+given for each in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-JAX is never imported.
+Neither JAX nor the JAX package is ever imported.
 """
 
 from __future__ import annotations
@@ -64,6 +69,33 @@ import time
 KERNEL_SOURCE = "genome_assembler_tpu_torch/csrc/kmer_extract.cu"
 KERNEL_REPLACES = "genome_assembler_tpu/ops/kmer_pallas.py:35"
 MAIN_BATCH = (262_144, 100, 31)  # reads, read length, k of one CFG-2 batch
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# No integer rate is published; the float32 rate outside the tensor cores
+# stands in (half of it would not change which bound is the larger).
+INT_OPS_PER_S = 67e12
+OPS_PER_WINDOW_LIMB = 8  # 2 shifts, 2 ors, mask, complement, compare, select
+
+# Edge shapes of the kernel's block layout: (reads, read length, k,
+# n_valid, share of Ns). Reads 1 and 2 of each case (where there are
+# three) are all Ns, and an N in the first and in the last base.
+TRAP_SHAPES = [
+    (5, 31, 31, 5, 0.0),        # one window a read
+    (4, 63, 63, 3, 0.01),       # one two-limb window a read
+    (7, 2, 2, 7, 0.1),          # k = 2, L = k
+    (3, 100, 2, 3, 0.02),
+    (1, 100, 31, 1, 0.0),       # one read: half a block's pair
+    (1, 101, 31, 1, 0.02),      # one read, odd window count: odd span
+    (65, 101, 31, 65, 0.01),    # ragged last block of one read, odd span
+    (130, 100, 31, 70, 0.01),   # n_valid inside a block
+    (257, 103, 31, 0, 0.01),    # n_valid = 0
+    (33, 99, 32, 20, 0.02),     # k = 32: the complement enters the low limb
+    (33, 97, 63, 33, 0.02),
+    (37, 250, 21, 36, 0.01),    # long reads: fewer reads a block
+    (3, 4000, 31, 3, 0.001),    # two reads a block
+    (3, 140_000, 31, 3, 0.0001),  # two reads' rows pass 48 KB: opt-in
+    (6, 50, 25, 6, 0.5),        # mostly Ns
+]
+REFUSED_SHAPE = (2, 400_000, 31)  # two reads' rows pass a block's 227 KB
 
 
 class SmokeFailure(Exception):
@@ -133,6 +165,65 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_bound_ms(b, length, k, with_inv):
+    """The least time the card could take for one extraction: the larger
+    of bytes over the memory rate (packed codes and invalid bits read
+    once, key limbs written once) and integer operations over their
+    rate. Returns (ms, "bytes" or "operations", bytes)."""
+    limbs = 1 if k <= 31 else 2
+    windows = b * (length - k + 1)
+    nbytes = windows * limbs * 8 + b * ((length + 3) // 4)
+    if with_inv:
+        nbytes += b * ((length + 7) // 8)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = windows * limbs * OPS_PER_WINDOW_LIMB / INT_OPS_PER_S * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", nbytes
+    return ops_ms, "operations", nbytes
+
+
+def check_trap_shapes(torch, ref, kmer, dev) -> int:
+    """The kernel, bit-equal to its plain version at TRAP_SHAPES with and
+    without invalid bits, and REFUSED_SHAPE raising; returns the count."""
+    import numpy as np
+
+    rng = np.random.default_rng(4242)
+    for b, length, k, n_valid, n_rate in TRAP_SHAPES:
+        reads = random_reads(rng, b, length, n_rate)
+        if b >= 3:
+            reads[1, :] = 4
+            reads[2, 0] = reads[2, -1] = 4
+        packed, inv = upload_reads(torch, ref, reads, dev)
+        # whole, and from read 1 on: a view whose rows start off a word
+        for first in (0, 1) if b >= 3 else (0,):
+            rows, nv = packed[first:], max(0, n_valid - first)
+            for bits in (None if inv is None else inv[first:], None):
+                got = kmer.extract_canonical_flat(rows, length, k, nv, bits)
+                want = kmer.extract_canonical_flat_ref(rows, length, k, nv,
+                                                       bits)
+                torch.cuda.synchronize()
+                err = max_abs_err(torch, got, want)
+                check(err == 0, f"kernel != plain version at B={b - first}, "
+                      f"L={length}, k={k}, n_valid={nv}, invalid bits "
+                      f"{'absent' if bits is None else 'present'}, from read "
+                      f"{first} (max err {err})")
+    b, length, k = REFUSED_SHAPE
+    packed = torch.zeros((b, (length + 3) // 4), dtype=torch.uint8, device=dev)
+    before = kmer.extract_canonical_flat.launches
+    try:
+        kmer.extract_canonical_flat(packed, length, k)
+    except ValueError as e:
+        check("shared memory" in str(e), f"unexpected refusal: {e}")
+    else:
+        check(False, f"the kernel took L={length}, k={k}, which it must refuse")
+    check(kmer.extract_canonical_flat.launches == before,
+          "a refused shape was counted as a launch")
+    log(f"kernel edge shapes: bit-equal to the plain version at "
+        f"{len(TRAP_SHAPES)} shapes, with and without invalid bits; "
+        f"L={length}, k={k} refused with a ValueError")
+    return len(TRAP_SHAPES)
+
+
 def phase_kernel(torch, ref, kmer, dev):
     import numpy as np
 
@@ -151,9 +242,11 @@ def phase_kernel(torch, ref, kmer, dev):
         worst = max(worst, err)
         log(f"kernel k={k}: bit-equal to the plain version "
             f"(B=1000, n_valid=777, Ns present)")
+    check_trap_shapes(torch, ref, kmer, dev)
     b, length, k = MAIN_BATCH
     reads = random_reads(rng, b, length, 0.0)
     packed, inv = upload_reads(torch, ref, reads, dev)
+    check(inv is None, "the timed main batch carries no invalid bits")
     got = kmer.extract_canonical_flat(packed, length, k)
     want = kmer.extract_canonical_flat_ref(packed, length, k)
     torch.cuda.synchronize()
@@ -167,11 +260,15 @@ def phase_kernel(torch, ref, kmer, dev):
     plain_ms = time_cuda(
         torch, lambda: kmer.extract_canonical_flat_ref(packed, length, k), 5
     )
+    bound_ms, bound_by, nbytes = kernel_bound_ms(b, length, k, False)
     windows = b * (length - k + 1)
     log(f"kernel main batch {b}x{length} k={k}: bit-equal; kernel "
-        f"{ms:.4f} ms ({windows / ms / 1e6:.1f} G windows/s), plain torch "
-        f"{plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+        f"{ms:.4f} ms ({windows / ms / 1e6:.1f} G windows/s, "
+        f"{nbytes / ms / 1e9:.3f} TB/s), bound {bound_ms:.4f} ms ({nbytes} "
+        f"bytes at {HBM_BYTES_PER_S / 1e12} TB/s; {ms / bound_ms:.2f}x), "
+        f"plain torch {plain_ms:.4f} ms")
+    return worst, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by}
 
 
 def cfg1_reads(ref):
@@ -502,30 +599,39 @@ def main() -> int:
     _build.kmer_extract_fn()
     log(f"built {KERNEL_SOURCE} -> {lib} in {time.perf_counter() - t0:.2f} s")
 
-    err, ms, plain_ms = phase_kernel(torch, ref, kmer, dev)
+    err, times = phase_kernel(torch, ref, kmer, dev)
     phase_oracle(torch, ref, pipeline, dev)
-    launches, cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline, kmer,
-                                                dev)
+    by_path = {}
+    by_path["cfg2"], cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline,
+                                                       kmer, dev)
     phase_mesh_cfg1(torch, ref, dist, mesh_mod)
-    cfg4_launches, cfg4_err, cfg4 = phase_cfg4(torch, ref, pipeline, dist,
-                                               mesh_mod, kmer, dev)
-    launches += cfg4_launches
+    by_path["cfg4_gathered"], cfg4_err, cfg4 = phase_cfg4(
+        torch, ref, pipeline, dist, mesh_mod, kmer, dev)
     err = max(err, cfg4_err)
-    launches += phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, *cfg4)
+    by_path["cfg4_sharded_graph"] = phase_cfg4_sharded(torch, ref, dist,
+                                                       mesh_mod, kmer, *cfg4)
     del cfg4
     phase_resume(torch, ref, pipeline, dist, mesh_mod, cfg2_reads, cfg2_cap,
                  dev)
-    check("jax" not in sys.modules, "JAX was imported")
+    foreign = sorted(
+        name for name in sys.modules
+        if name == "jax" or name.startswith("jax.")
+        or name == "genome_assembler_tpu"
+        or name.startswith("genome_assembler_tpu.")
+    )
+    check(not foreign, f"JAX or the JAX package was imported: {foreign[:5]}")
 
     print(json.dumps({"kernels": [{
         "name": "kmer_extract",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **times,
+        # no single PyTorch call computes the canonical k-mers of packed reads
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

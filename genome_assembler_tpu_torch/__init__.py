@@ -8,17 +8,24 @@ kernel, ``csrc/kmer_extract.cu``) -> sort/segment-reduce counts ->
 coverage filter -> unitig compression by pointer doubling -> spelling
 reduction -> host simplification and traversal -> contigs.
 
-  * ``utils``  -- explicit device resolution, the int64 key-limb layout.
+  * ``utils``  -- explicit device resolution, the int64 key-limb layout,
+                  the 2-bit data model (``dna``), ``AssemblyConfig``,
+                  ``Metrics``, the read simulator, the native read loader.
   * ``ops``    -- extraction kernel + plain torch version, counting, key
-                  word ops, unitig compression.
-  * ``host``   -- the port's thin spelling step over the shared NumPy
-                  host modules.
-  * ``models`` -- the pipeline entry point ``assemble_torch``.
+                  word ops, unitig compression, the NumPy extraction
+                  oracle (``kmer_ref``).
+  * ``host``   -- graph semantics, simplification, traversal, stats and
+                  the spelling step (NumPy and pure Python).
+  * ``models`` -- the pipeline entry point ``assemble_torch`` and the
+                  NumPy oracle ``assemble_oracle``.
+  * ``parallel`` -- the mesh of shards, the sharded count and graph.
 
-The package imports ``torch`` and never ``jax``. The framework-free host
-half of the reference package (``utils.dna``, ``utils.config``,
-``utils.simulate``, ``host.*``, ``ops.kmer_ref``, ``models.oracle``) is
-reused by import, not copied.
+The package imports ``torch`` and never ``jax``, and nothing of
+``genome_assembler_tpu``: the framework-free host half of the reference
+package (``utils.dna``, ``utils.config``, ``utils.metrics``,
+``utils.simulate``, ``utils.io_native``, ``host.*``, ``ops.kmer_ref``,
+``models.oracle``) lives here as copies under the same names, held equal
+to their originals by ``tests/test_torch_host.py``.
 """
 
 __version__ = "0.1.0"

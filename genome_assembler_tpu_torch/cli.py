@@ -13,8 +13,9 @@ count over ``--devices`` shards placed round-robin on the visible GPUs
 (``--device cuda``), on one named device (``cuda:N``) or on the CPU
 (``cpu``); ``--sharded-graph`` keeps the graph stages sharded as well
 instead of gathering the table onto one device. Read parsing, FASTA output and
-the read simulator are the reference package's (``genome_assembler_tpu
-.cli``, ``utils.io_native``, ``utils.simulate``), which import no JAX.
+the read simulator are the port's own copies of the reference package's
+(``read_sequences``, ``write_fasta``, ``utils.io_native``,
+``utils.simulate``).
 """
 
 from __future__ import annotations
@@ -25,16 +26,124 @@ import time
 
 import numpy as np
 
-from genome_assembler_tpu.cli import _add_sim_args, _simulated_reads
-from genome_assembler_tpu.cli import read_sequences, write_fasta
-from genome_assembler_tpu.utils.config import AssemblyConfig
-from genome_assembler_tpu.utils.dna import INVALID_CODE, encode_seq
+from .utils.config import AssemblyConfig
+from .utils.dna import INVALID_CODE, encode_seq
+from .utils.simulate import GENOME_PRESETS, preset_genome, simulate_genome, simulate_reads
+
+
+def read_sequences(path: str) -> list[str]:
+    """Load reads: FASTA if the first record starts with '>', FASTQ if it
+    starts with '@' (sequence lines kept, quality lines skipped), else one
+    sequence per line (multi-line joining only applies to FASTA records).
+    path '-' reads stdin (reference CLI parity: assemble < reads)."""
+    if path == "-":
+        lines = [ln.strip() for ln in sys.stdin]
+    else:
+        with open(path) as fh:
+            lines = [ln.strip() for ln in fh]
+    lines = [ln for ln in lines if ln]
+    if not lines:
+        return []
+    if lines[0].startswith("@"):
+        # FASTQ: 4-line records (@header, sequence, +separator, quality)
+        if len(lines) % 4 != 0:
+            raise ValueError(
+                f"{path}: malformed FASTQ ({len(lines)} non-empty lines, "
+                "expected a multiple of 4)"
+            )
+        return [lines[i + 1].upper() for i in range(0, len(lines), 4)]
+    if not lines[0].startswith(">"):
+        return [ln.upper() for ln in lines]
+    seqs: list[str] = []
+    current: list[str] = []
+    for line in lines:
+        if line.startswith(">"):
+            if current:
+                seqs.append("".join(current))
+                current = []
+        else:
+            current.append(line.upper())
+    if current:
+        seqs.append("".join(current))
+    return seqs
+
+
+def write_fasta(
+    contigs: list[str],
+    fh,
+    prefix: str = "contig",
+    coverages: list[float] | None = None,
+) -> None:
+    for i, seq in enumerate(contigs):
+        cov = f" cov={coverages[i]:.1f}" if coverages else ""
+        fh.write(f">{prefix}_{i} len={len(seq)}{cov}\n")
+        for j in range(0, len(seq), 80):
+            fh.write(seq[j : j + 80] + "\n")
+
+
+def _add_sim_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--preset", choices=sorted(GENOME_PRESETS), default=None,
+                   help="synthesized stand-in genome (BASELINE.md configs)")
+    p.add_argument("--genome-len", type=int, default=None,
+                   help="random genome length (alternative to --preset)")
+    p.add_argument("--genome-seed", type=int, default=101)
+    p.add_argument("--coverage", type=float, default=100.0)
+    p.add_argument("--read-len", type=int, default=100)
+    p.add_argument("--error-rate", type=float, default=0.0)
+    p.add_argument("--read-seed", type=int, default=1)
+    p.add_argument("--single-strand", action="store_true",
+                   help="forward-strand reads only")
+    p.add_argument("--chromosomes", type=int, default=1,
+                   help="split --genome-len across N independent "
+                   "chromosomes (multi-contig ground truth)")
+    p.add_argument("--circular", action="store_true",
+                   help="circular chromosome(s): reads wrap the origin")
+
+
+def _simulated_reads(args) -> tuple[np.ndarray, list[np.ndarray]]:
+    n_chrom = getattr(args, "chromosomes", 1)
+    circular = getattr(args, "circular", False)
+    if args.preset:
+        genomes = [preset_genome(args.preset)]
+    elif args.genome_len:
+        if n_chrom > 1:
+            from .utils.simulate import simulate_genome_multi
+
+            per = args.genome_len // n_chrom
+            lens = [per] * (n_chrom - 1) + [args.genome_len - per * (n_chrom - 1)]
+            genomes = simulate_genome_multi(lens, seed=args.genome_seed)
+        else:
+            genomes = [simulate_genome(args.genome_len, seed=args.genome_seed)]
+    else:
+        raise SystemExit("need --preset or --genome-len (or --reads)")
+    if len(genomes) > 1:
+        from .utils.simulate import simulate_reads_multi
+
+        rs = simulate_reads_multi(
+            genomes,
+            coverage=args.coverage,
+            read_len=args.read_len,
+            seed=args.read_seed,
+            error_rate=args.error_rate,
+            circular=circular,
+        )
+    else:
+        rs = simulate_reads(
+            genomes[0],
+            coverage=args.coverage,
+            read_len=args.read_len,
+            seed=args.read_seed,
+            error_rate=args.error_rate,
+            both_strands=not args.single_strand,
+            circular=circular,
+        )
+    return rs.codes, genomes
 
 
 def _load_reads(path: str) -> np.ndarray:
     """Reads file -> [B, L] uint8 codes; ragged reads pad with
     INVALID_CODE, whose windows are masked like Ns."""
-    from genome_assembler_tpu.utils.io_native import load_reads
+    from .utils.io_native import load_reads
 
     native = load_reads(path)  # C++ mmap fast path
     if native is not None:
@@ -63,11 +172,11 @@ def _dist_mesh(args, device):
 
 
 def cmd_assemble(args) -> int:
-    from genome_assembler_tpu.host.traverse import (
+    from .host.traverse import (
         emit_contigs_euler_with_cov,
         emit_contigs_with_cov,
     )
-    from genome_assembler_tpu.utils.metrics import Metrics
+    from .utils.metrics import Metrics
 
     from .models.pipeline import assemble_torch
     from .utils.device import resolve_device
@@ -119,8 +228,7 @@ def cmd_assemble(args) -> int:
     contigs = [s for s, _ in with_cov]
     dt = time.perf_counter() - t0
     if args.metrics_out:
-        # stage seconds and counters only: Metrics.derive's roofline share
-        # is against a TPU peak, so no derived rates are written
+        # stage seconds and counters only; no derived rates are written
         import json
 
         report = {

@@ -25,17 +25,17 @@ import time
 import numpy as np
 import torch
 
-from genome_assembler_tpu.host.dbg import counts_to_dict
-from genome_assembler_tpu.host.simplify import simplify_counts
-from genome_assembler_tpu.host.simplify_arrays import simplify_arrays_to_graph
-from genome_assembler_tpu.host.traverse import emit_contigs, emit_contigs_euler
-from genome_assembler_tpu.utils.config import AssemblyConfig
-from genome_assembler_tpu.utils.dna import (
+from ..host.dbg import counts_to_dict
+from ..host.simplify import simplify_counts
+from ..host.simplify_arrays import simplify_arrays_to_graph
+from ..host.traverse import emit_contigs, emit_contigs_euler
+from ..utils.config import AssemblyConfig
+from ..utils.dna import (
     has_ambiguous,
     pack_codes,
     pack_invalid_mask,
 )
-from genome_assembler_tpu.utils.metrics import Metrics
+from ..utils.metrics import Metrics
 
 from ..host.dbg import spell_device_arrays
 from ..ops import count_torch
@@ -298,16 +298,24 @@ def table_to_host_counts(table: CountTable, k: int) -> dict[str, int]:
     return counts_to_dict(words, counts, k)
 
 
-def auto_min_count(table: CountTable) -> int:
+def auto_min_count(table_or_counts) -> int:
     """Coverage-filter threshold of a table (the reference heuristic,
     ``models/pipeline.py auto_min_count``; tests hold the two equal). The
     histogram is computed on the table's device; only its 1001 bins
-    cross to the host."""
-    if int(table.num_unique) == 0:
+    cross to the host. A plain array of multiplicities is accepted too
+    (the oracle passes its dict values, so both paths pick the same
+    threshold)."""
+    if isinstance(table_or_counts, CountTable):
+        table = table_or_counts
+        if int(table.num_unique) == 0:
+            return 1
+        return auto_min_count_hist(
+            count_torch.multiplicity_histogram(table).cpu().numpy()
+        )
+    counts = np.asarray(table_or_counts)
+    if counts.size == 0:
         return 1
-    return auto_min_count_hist(
-        count_torch.multiplicity_histogram(table).cpu().numpy()
-    )
+    return auto_min_count_hist(np.bincount(np.minimum(counts, 1000)))
 
 
 def auto_min_count_hist(full: np.ndarray) -> int:
@@ -444,7 +452,7 @@ def assemble_torch(
     m.count("reads", reads.shape[0])
     m.count("kmers", reads.shape[0] * wc)
     if has_ambiguous(reads):
-        from genome_assembler_tpu.ops.kmer_ref import window_valid_np
+        from ..ops.kmer_ref import window_valid_np
 
         m.count("masked_windows", int((~window_valid_np(reads, cfg.k)).sum()))
     resume_stream = (

@@ -98,6 +98,10 @@ def kmer_extract_fn():
         ctypes.c_int,  # read_len
         ctypes.c_int,  # k
         ctypes.c_int,  # n_limbs
+        ctypes.c_int,  # reads per block
+        ctypes.c_int,  # shared words for a block's packed codes
+        ctypes.c_int,  # shared words for a block's invalid bits
+        ctypes.c_longlong,  # dynamic shared memory (bytes)
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int

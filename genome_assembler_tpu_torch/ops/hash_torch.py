@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from genome_assembler_tpu.utils.dna import key_words
+from ..utils.dna import key_words
 
 from ..utils.keys import lsr, to_raw
 

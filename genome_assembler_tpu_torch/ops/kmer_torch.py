@@ -16,9 +16,15 @@ do both versions here:
 
 Kernel note (details in the .cu source): it replaces
 ``genome_assembler_tpu/ops/kmer_pallas.py::_kernel``; it is bound by
-device-memory bytes (about L/4 bytes in and 8 * n_limbs bytes out per
-window), and one thread per window with neighbouring threads on
-neighbouring windows keeps loads L1-shared and stores contiguous.
+device-memory bytes (8 * n_limbs bytes out per window, about L/4 + L/8
+bytes in per read). The packed row's own bit stream, complemented, is
+the reverse strand of every window, and the forward strand is the same
+bits with their 2-bit pairs reversed (a bit reversal and a swap), so a
+window costs a fixed few dozen operations whatever k is and nothing
+is carried from window to window. A block stages the packed rows of a
+few whole reads in shared memory and writes their keys as one
+contiguous span of 16-byte stores. ``launch_plan`` sizes the block from
+L and k; a shape whose rows do not fit a block's shared memory raises.
 
 Output contract: ``[B * (L-k+1), n_limbs]`` int64 limbs (``utils.keys``
 layout), row-major over (read, window). Windows of rows >= ``n_valid``
@@ -26,6 +32,8 @@ and windows that touch an ambiguous base are the sentinel.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -155,6 +163,58 @@ def _check_args(packed, read_len, k, n_valid, inv_bits) -> int:
     return b
 
 
+# Launch geometry of csrc/kmer_extract.cu (the .cu entry checks the same).
+BLOCK_WINDOWS = 4096  # windows a block of 256 threads takes, about
+MAX_READS_PER_BLOCK = 256
+CODE_PAD_WORDS = 4  # words past a shared span's data that a window may touch
+INV_PAD_WORDS = 2
+SHARED_DEFAULT = 48 * 1024  # dynamic shared memory a block gets without opt-in
+SHARED_MAX = 232_448  # 227 KB, the most a Hopper block can opt in to
+
+
+class LaunchPlan(NamedTuple):
+    """How ``csrc/kmer_extract.cu`` cuts a batch into blocks."""
+
+    reads_per_block: int  # R whole reads a block, even
+    code_words: int  # 32-bit shared words for a block's packed codes
+    inv_words: int  # 32-bit shared words for a block's invalid bits
+    shared_bytes: int  # dynamic shared memory of a block
+
+
+def launch_plan(read_len: int, k: int) -> LaunchPlan:
+    """The kernel's launch geometry for reads of ``read_len`` bases.
+
+    A block takes R whole reads, about ``BLOCK_WINDOWS`` windows, and
+    copies their packed rows and invalid bits, one contiguous span of
+    the input each, into shared memory as aligned 32-bit words: the
+    span's bytes, one word for its misalignment, and the words the last
+    window's funnel shifts may touch. R is even so that a block's span of
+    the output starts on a 16-byte boundary, and it shrinks while the
+    spans would pass the 48 KB a block gets by default; only when even
+    two reads pass it does the block opt in to more, up to 227 KB.
+    Raises ValueError when two reads' rows do not fit a block.
+    """
+    wc = read_len - k + 1
+    code_bytes, inv_bytes = (read_len + 3) // 4, (read_len + 7) // 8
+
+    def words(reads):
+        return (
+            (reads * code_bytes + 3) // 4 + 1 + CODE_PAD_WORDS,
+            (reads * inv_bytes + 3) // 4 + 1 + INV_PAD_WORDS,
+        )
+
+    reads = min(MAX_READS_PER_BLOCK, max(2, (-(-BLOCK_WINDOWS // wc) + 1) & ~1))
+    while reads > 2 and 4 * sum(words(reads)) > SHARED_DEFAULT:
+        reads = (reads // 2 + 1) & ~1
+    shared = 4 * sum(words(reads))
+    if shared > SHARED_MAX:
+        raise ValueError(
+            f"read_len={read_len}, k={k}: two reads' packed rows need "
+            f"{shared} bytes of shared memory, a block has {SHARED_MAX}"
+        )
+    return LaunchPlan(reads, *words(reads), shared)
+
+
 def extract_canonical_flat(
     packed: torch.Tensor,
     read_len: int,
@@ -165,20 +225,33 @@ def extract_canonical_flat(
     """[B, ceil(L/4)] packed reads -> [B*(L-k+1), n_limbs] canonical limbs.
 
     On a CUDA tensor this launches ``csrc/kmer_extract.cu`` on the current
-    stream (and raises if the build or the launch fails); on a CPU tensor
-    it runs :func:`extract_canonical_flat_ref`. Any B is accepted.
+    stream (and raises if the shape does not fit the kernel, or the build
+    or the launch fails); on a CPU tensor it runs
+    :func:`extract_canonical_flat_ref`. Any B is accepted.
     """
-    b = _check_args(packed, read_len, k, n_valid, inv_bits)
+    _check_args(packed, read_len, k, n_valid, inv_bits)
     if packed.device.type == "cpu":
         return extract_canonical_flat_ref(packed, read_len, k, n_valid, inv_bits)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
+    return launch_kernel(
+        packed, read_len, k, n_valid, inv_bits, launch_plan(read_len, k)
+    )
+
+
+def launch_kernel(packed, read_len, k, n_valid, inv_bits, plan: LaunchPlan):
+    """Launch ``csrc/kmer_extract.cu`` with ``plan`` on checked CUDA
+    arguments (the wrapper's second half). Counts the launch in
+    ``extract_canonical_flat.launches``."""
     from ._build import kmer_extract_fn
 
     fn = kmer_extract_fn()
+    b = packed.shape[0]
     nl = n_limbs(k)
     wc = read_len - k + 1
     out = torch.empty((b * wc, nl), dtype=torch.int64, device=packed.device)
+    if b == 0:
+        return out
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream(packed.device).cuda_stream
         err = fn(
@@ -192,10 +265,14 @@ def extract_canonical_flat(
             read_len,
             k,
             nl,
+            *plan,
             stream,
         )
     if err != 0:
-        raise RuntimeError(f"kmer_extract launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"kmer_extract launch failed: CUDA error {err} "
+            f"(read_len={read_len}, k={k}, {plan})"
+        )
     extract_canonical_flat.launches += 1
     return out
 

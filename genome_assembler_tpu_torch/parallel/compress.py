@@ -41,12 +41,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from genome_assembler_tpu.host.simplify_arrays import (
+from ..host.simplify_arrays import (
     UnitigArrays,
     build_unitig_arrays,
 )
-from genome_assembler_tpu.utils.dna import key_words, unpack_codes_np
-from genome_assembler_tpu.utils.metrics import Metrics
+from ..utils.dna import key_words, unpack_codes_np
+from ..utils.metrics import Metrics
 
 from ..ops.count_torch import (
     CountTable,

@@ -28,16 +28,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genome_assembler_tpu.host.simplify_arrays import simplify_arrays_to_graph
-from genome_assembler_tpu.host.traverse import emit_contigs, emit_contigs_euler
-from genome_assembler_tpu.utils.config import AssemblyConfig
-from genome_assembler_tpu.utils.dna import (
+from ..host.simplify_arrays import simplify_arrays_to_graph
+from ..host.traverse import emit_contigs, emit_contigs_euler
+from ..utils.config import AssemblyConfig
+from ..utils.dna import (
     has_ambiguous,
     key_words,
     pack_codes,
     pack_invalid_mask,
 )
-from genome_assembler_tpu.utils.metrics import Metrics
+from ..utils.metrics import Metrics
 
 from ..models.pipeline import (
     after_stream_batch,

@@ -1,17 +1,18 @@
-"""The framework-free reference pieces the port is checked against.
+"""The framework-free pieces the port is checked against.
 
-One place that names what the port borrows from ``genome_assembler_tpu``
-to test itself: the seeded genome and read simulator, the NumPy oracle
-assembler, contig comparison, and the acceptance configurations' table
-sizing. None of these modules imports JAX, so they run on a machine that
-has only PyTorch.
+One place that names what the port's on-card checks use to test it: the
+seeded genome and read simulator, the NumPy oracle assembler, contig
+comparison and the 2-bit packers. All are the port's own modules (copies
+of the reference package's, held equal to them by
+``tests/test_torch_host.py``), so they run on a machine that has only
+PyTorch.
 """
 
-from genome_assembler_tpu.host.traverse import contigs_equal
-from genome_assembler_tpu.models.oracle import assemble_oracle
-from genome_assembler_tpu.utils.config import AssemblyConfig
-from genome_assembler_tpu.utils.dna import decode_seq, pack_codes, pack_invalid_mask
-from genome_assembler_tpu.utils.simulate import simulate_genome, simulate_reads
+from .host.traverse import contigs_equal
+from .models.oracle import assemble_oracle
+from .utils.config import AssemblyConfig
+from .utils.dna import decode_seq, pack_codes, pack_invalid_mask
+from .utils.simulate import simulate_genome, simulate_reads
 
 __all__ = [
     "AssemblyConfig",

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genome_assembler_tpu.utils.dna import key_words
+from .dna import key_words
 
 INT64_MAX = (1 << 63) - 1
 INT64_MIN = -(1 << 63)

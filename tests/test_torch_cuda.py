@@ -24,6 +24,79 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# Edge shapes of the kernel's block layout: (reads, read length, k,
+# n_valid, share of Ns); reads 1 and 2 of a case are all Ns, and an N in
+# the first and in the last base.
+EDGE_SHAPES = {
+    "one_window_a_read": (5, 31, 31, 5, 0.0),
+    "one_two_limb_window": (4, 63, 63, 3, 0.01),
+    "k2_len2": (7, 2, 2, 7, 0.1),
+    "k2": (3, 100, 2, 3, 0.02),
+    "one_read": (1, 100, 31, 1, 0.0),
+    "one_read_odd_span": (1, 101, 31, 1, 0.02),
+    "ragged_last_block_odd_span": (65, 101, 31, 65, 0.01),
+    "n_valid_inside_a_block": (130, 100, 31, 70, 0.01),
+    "n_valid_zero": (257, 103, 31, 0, 0.01),
+    "k32": (33, 99, 32, 20, 0.02),
+    "k63": (33, 97, 63, 33, 0.02),
+    "long_reads": (37, 250, 21, 36, 0.01),
+    "two_reads_a_block": (3, 4000, 31, 3, 0.001),
+    "shared_memory_opt_in": (3, 140_000, 31, 3, 0.0001),
+    "mostly_ns": (6, 50, 25, 6, 0.5),
+}
+
+
+@pytest.mark.parametrize("with_bits", [True, False], ids=["bits", "no_bits"])
+@pytest.mark.parametrize("case", sorted(EDGE_SHAPES))
+def test_kernel_edge_shapes(cuda_device, case, with_bits):
+    b, length, k, n_valid, n_rate = EDGE_SHAPES[case]
+    rng = np.random.default_rng(b * length + k)
+    reads = rng.integers(0, 4, size=(b, length), dtype=np.uint8)
+    reads[rng.random(reads.shape) < n_rate] = 4
+    if b >= 3:
+        reads[1, :] = 4
+        reads[2, 0] = reads[2, -1] = 4
+    packed = torch.from_numpy(ref.pack_codes(reads)).to(cuda_device)
+    inv = ref.pack_invalid_mask(reads)
+    if inv is not None and with_bits:
+        inv = torch.from_numpy(inv).to(cuda_device)
+    else:
+        inv = None
+    got = kmer_torch.extract_canonical_flat(packed, length, k, n_valid, inv)
+    want = kmer_torch.extract_canonical_flat_ref(packed, length, k, n_valid,
+                                                 inv)
+    torch.cuda.synchronize()
+    assert got.is_cuda and torch.equal(got, want)
+
+
+def test_kernel_refuses_a_shape_it_cannot_take(cuda_device, monkeypatch):
+    """Two reads whose packed rows pass a block's shared memory: the
+    wrapper raises, and the plain version is never called in its place."""
+    def no_plain_version(*args, **kwargs):
+        raise AssertionError("the plain version stood in for the kernel")
+
+    monkeypatch.setattr(kmer_torch, "extract_canonical_flat_ref",
+                        no_plain_version)
+    length = 400_000
+    packed = torch.zeros((2, length // 4), dtype=torch.uint8,
+                         device=cuda_device)
+    before = kmer_torch.extract_canonical_flat.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        kmer_torch.extract_canonical_flat(packed, length, 31)
+    assert kmer_torch.extract_canonical_flat.launches == before
+
+
+def test_kernel_entry_refuses_a_bad_plan(cuda_device):
+    """The C entry checks the plan again: an odd number of reads a block
+    (a span off its 16-byte boundary) is an error, not a launch."""
+    packed = torch.zeros((4, 25), dtype=torch.uint8, device=cuda_device)
+    plan = kmer_torch.launch_plan(100, 31)._replace(reads_per_block=3)
+    before = kmer_torch.extract_canonical_flat.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kmer_torch.launch_kernel(packed, 100, 31, None, None, plan)
+    assert kmer_torch.extract_canonical_flat.launches == before
+
+
 @pytest.mark.parametrize("k", [2, 15, 21, 25, 31, 32, 41, 63])
 def test_kernel_matches_plain_version(cuda_device, k):
     rng = np.random.default_rng(k)

@@ -119,3 +119,34 @@ def test_wrapper_checks_and_cpu_path_launches_nothing():
         kmer_torch.extract_canonical_flat(packed, 40, 64)
     with pytest.raises(ValueError, match="unsupported device"):
         kmer_torch.extract_canonical_flat(packed.to("meta"), 40, 21)
+
+
+@pytest.mark.parametrize("read_len,k", [
+    (100, 31), (100, 21), (100, 41), (100, 63), (250, 21), (31, 31), (2, 2),
+    (101, 32), (4000, 31), (140_000, 31), (300_000, 63),
+])
+def test_launch_plan_geometry(read_len, k):
+    """The kernel's block layout (computed on the host, checked again by
+    the kernel's entry point): an even number of whole reads, shared spans
+    that hold the rows, their misalignment and the funnel shifts' reach."""
+    plan = kmer_torch.launch_plan(read_len, k)
+    wc = read_len - k + 1
+    r = plan.reads_per_block
+    assert r % 2 == 0 and 2 <= r <= kmer_torch.MAX_READS_PER_BLOCK
+    assert plan.code_words >= -(-r * ((read_len + 3) // 4) // 4) + 1 + 4
+    assert plan.inv_words >= -(-r * ((read_len + 7) // 8) // 4) + 1 + 2
+    assert plan.shared_bytes == 4 * (plan.code_words + plan.inv_words)
+    assert plan.shared_bytes <= kmer_torch.SHARED_MAX
+    if plan.shared_bytes > kmer_torch.SHARED_DEFAULT:
+        assert r == 2  # more shared memory is asked for only as a last resort
+    if 2 < r < kmer_torch.MAX_READS_PER_BLOCK and plan.shared_bytes < 40_000:
+        assert kmer_torch.BLOCK_WINDOWS <= r * wc < kmer_torch.BLOCK_WINDOWS + 2 * wc
+    assert r * wc < 2**30  # the kernel indexes a block's windows in 32 bits
+
+
+def test_launch_plan_refuses_rows_that_do_not_fit_a_block():
+    with pytest.raises(ValueError, match="shared memory"):
+        kmer_torch.launch_plan(400_000, 31)
+    # the refusal is the plan's, whatever the device: a CPU tensor still
+    # goes through the plain version, which has no such limit
+    assert kmer_torch.launch_plan(100, 31).reads_per_block == 60
