@@ -48,10 +48,27 @@ result line:
      rounds, routed bytes and peak memory per card printed; then resumed
      from the checkpoint with zeroed reads to the same contig;
   9. a mid-stream stop and resume on the card (CFG-2 reads, one device
-     and 4 shards): the resumed table equals the uninterrupted one.
+     and 4 shards): the resumed table equals the uninterrupted one;
+ 10. the upload pipeline at full size: CFG-2's 9 batches through the
+     pinned ring (launch counter reset just before) give the table of the
+     same reads uploaded batch by batch with a plain ``.to(device)``
+     (``count_reads_device(_plain_upload=True)``), bit for bit; the same
+     with Ns in the reads and a batch size that leaves a short last
+     batch; the ``count`` stage's seconds and the device's idle share over
+     it from a ``torch.profiler`` trace, and one batch's fill, copy and
+     device milliseconds. (CFG-4's sharded count is read the same way
+     inside phase 7, from the run that gathers its table.);
+ 11. the acceptance runners 0, 1, 2 and 5 at full size through
+     ``models.acceptance.run`` on the card: each must pass, each JSON line
+     is printed;
+ 12. the command line, as subprocesses at CFG-1's size: ``ga-torch
+     simulate`` -> file -> ``ga-torch assemble --gfa --stats --metrics-out
+     --trace-dir`` -> ``ga-torch stats``; exit codes, the trace's CUDA
+     kernels and stage names, and ``derived.hbm_roofline_frac`` < 1.
 
 The line before the last is the kernel report (launches summed over the
-three main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, and
+main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
+phase's ring run and the acceptance runners, and
 given for each in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
@@ -334,7 +351,9 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
     peak = torch.cuda.max_memory_allocated(dev)
     check(len(contigs) == 1, f"CFG-2: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-2 contig != genome")
-    check(launches > 0, "CFG-2 main path never launched the kernel")
+    check(launches == -(-rs.num_reads // cfg.batch_reads),
+          f"CFG-2 main path launched the kernel {launches} times, not once "
+          f"a streamed batch")
     windows = rs.num_reads * (100 - k + 1)
     stages = {name: round(s, 4) for name, s in m.stages.items()}
     log(f"CFG-2 warm run: {wall:.3f} s wall, 1 contig == genome "
@@ -394,7 +413,7 @@ def peaks_gib(torch, mesh) -> list[float]:
             for dev in dict.fromkeys(mesh.devices)]
 
 
-def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
+def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     from genome_assembler_tpu_torch.ops import count_torch
     from genome_assembler_tpu_torch.utils.keys import snug_capacity
 
@@ -458,11 +477,20 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
         f" (run), minimizer m=15 {mini_bytes} (same plan, its buffer "
         f"shapes)")
 
-    t0 = time.perf_counter()
-    gathered = dist.distributed_count_table(rs.codes, cfg, mesh,
-                                            table_capacity=capacity)
-    torch.cuda.synchronize(dev)
-    t_dist = time.perf_counter() - t0
+    # the count alone, under the profiler: its idle share
+    with tempfile.TemporaryDirectory() as tmp:
+        mc = dist.Metrics()
+        t0 = time.perf_counter()
+        with metrics_mod.profiler_trace(tmp):
+            with pipeline.timed_stage(mc, "count", mesh.devices):
+                gathered = dist.distributed_count_table(
+                    rs.codes, cfg, mesh, table_capacity=capacity)
+        t_dist = mc.stages["count"]
+        busy, span = metrics_mod.read_trace(tmp).busy_share("count")
+    log(f"CFG-4 count on 4 shards under torch.profiler: {t_dist:.3f} s, "
+        f"device busy {busy:.3f} s of {span:.3f} s, idle "
+        f"{100 * (1 - busy / span):.1f}% (trace written and read in "
+        f"{time.perf_counter() - t0 - t_dist:.1f} s)")
     t0 = time.perf_counter()
     single = pipeline.count_reads_device(rs.codes, cfg, device=dev,
                                          table_capacity=capacity)
@@ -472,7 +500,7 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, kmer, dev):
           "CFG-4: gathered 4-shard table != single-device table")
     log(f"CFG-4 gathered table == single-device table "
         f"({int(single.num_unique)} unique k-mers); count on 4 shards "
-        f"{t_dist:.3f} s, on one device {t_single:.3f} s")
+        f"{t_dist:.3f} s (profiled), on one device {t_single:.3f} s")
     del gathered, single
 
     # routing share of one streamed batch, at the run's shapes
@@ -579,6 +607,172 @@ def phase_resume(torch, ref, pipeline, dist, mesh_mod, reads, capacity, dev):
             del full, resumed
 
 
+def profiled_count(torch, pipeline, metrics_mod, dev, count):
+    """``count()`` as a ``count`` stage under ``torch.profiler``: (table,
+    stage seconds, device-busy seconds, the stage's span in the trace)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        m = pipeline.Metrics()
+        with metrics_mod.profiler_trace(tmp):
+            with pipeline.timed_stage(m, "count", dev):
+                table = count()
+        busy, span = metrics_mod.read_trace(tmp).busy_share("count")
+    return table, m.stages["count"], busy, span
+
+
+def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
+                 dev):
+    """CFG-2's reads through the upload ring against the plain upload."""
+    import numpy as np
+
+    cfg = ref.AssemblyConfig(k=31, read_len=100)
+    batches = -(-reads.shape[0] // cfg.batch_reads)
+
+    def count(rows, cfg_, **kw):
+        return pipeline.count_reads_device(rows, cfg_, device=dev,
+                                           table_capacity=capacity, **kw)
+
+    kmer.extract_canonical_flat.launches = 0
+    t0 = time.perf_counter()
+    ring = count(reads, cfg)
+    torch.cuda.synchronize(dev)
+    t_ring = time.perf_counter() - t0
+    launches = kmer.extract_canonical_flat.launches
+    check(launches == batches, f"the ring run launched the kernel "
+          f"{launches} times for {batches} batches")
+    t0 = time.perf_counter()
+    plain = count(reads, cfg, _plain_upload=True)
+    torch.cuda.synchronize(dev)
+    t_plain = time.perf_counter() - t0
+    check(tables_equal(torch, ring, plain) and torch.equal(ring.limbs,
+                                                           plain.limbs),
+          "CFG-2: table through the upload ring != table by plain uploads")
+    log(f"upload ring, CFG-2 ({batches} batches of {cfg.batch_reads} reads): "
+        f"table bit-equal to the plain upload's ({int(ring.num_unique)} "
+        f"unique k-mers), {launches} kernel launches; count {t_ring:.4f} s "
+        f"through the ring, {t_plain:.4f} s by plain uploads")
+    del ring, plain
+
+    # Ns, and a batch size that leaves a short last batch
+    noisy = reads.copy()
+    rng = np.random.default_rng(77)
+    noisy[rng.integers(0, noisy.shape[0], 200_000),
+          rng.integers(0, 100, 200_000)] = 4
+    cfg_n = ref.AssemblyConfig(k=31, read_len=100, batch_reads=250_000)
+    check(noisy.shape[0] % 250_000 != 0, "the last batch is not short")
+    a = count(noisy, cfg_n)
+    b = count(noisy, cfg_n, _plain_upload=True)
+    check(tables_equal(torch, a, b) and torch.equal(a.limbs, b.limbs),
+          "reads with Ns: table through the upload ring != plain uploads")
+    log(f"upload ring, CFG-2's reads with 200,000 Ns in "
+        f"{-(-noisy.shape[0] // 250_000)} batches of 250,000 (last "
+        f"{noisy.shape[0] % 250_000}): table bit-equal to the plain "
+        f"upload's ({int(a.num_unique)} unique k-mers)")
+    del a, b, noisy
+
+    for name, kw in (("upload ring", {}),
+                     ("plain uploads", {"_plain_upload": True})):
+        _, secs, busy, span = profiled_count(
+            torch, pipeline, metrics_mod, dev, lambda: count(reads, cfg, **kw))
+        log(f"CFG-2 count under torch.profiler, {name}: {secs:.4f} s, device "
+            f"busy {busy:.4f} s of {span:.4f} s, idle "
+            f"{100 * (1 - busy / span):.1f}%")
+
+    # one batch, piece by piece
+    b_, length = cfg.batch_reads, 100
+    rows = reads[:b_]
+    slot = torch.empty((b_, length), dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty((b_, length), dtype=torch.uint8, device=dev)
+    fills = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        np.copyto(slot.numpy(), rows)
+        fills.append((time.perf_counter() - t0) * 1e3)
+    copy_ms = time_cuda(torch, lambda: buf.copy_(slot, non_blocking=True), 10)
+    table = count(reads[: 2 * b_], cfg)
+    pack_ms = time_cuda(torch, lambda: pipeline.pack_on_device(buf, False), 10)
+
+    def device_step():
+        packed, inv = pipeline.pack_on_device(buf, False)
+        pipeline._stream_step(table, packed, length, 31, inv)
+
+    step_ms = time_cuda(torch, device_step, 5)
+    log(f"one CFG-2 batch ({b_} x {length}): host fill of the pinned slot "
+        f"{sorted(fills)[2]:.3f} ms, copy of {b_ * length} bytes "
+        f"{copy_ms:.3f} ms, device pack {pack_ms:.3f} ms, device pack + "
+        f"extraction + merge {step_ms:.3f} ms")
+    return launches
+
+
+def phase_accept(torch, acceptance, kmer):
+    """The acceptance runners 0, 1, 2 and 5 at full size on the card."""
+    kmer.extract_canonical_flat.launches = 0
+
+    def emit(r):
+        log(f"accept: {r.to_json()}")
+
+    t0 = time.perf_counter()
+    results = acceptance.run([0, 1, 2, 5], on_result=emit, device="cuda")
+    failed = [r.config for r in results if not r.passed]
+    check(not failed, f"acceptance configs {failed} failed")
+    log(f"accept 0, 1, 2, 5: all passed in {time.perf_counter() - t0:.1f} s")
+    return kmer.extract_canonical_flat.launches
+
+
+def phase_cli(metrics_mod):
+    """simulate -> assemble (every output, a trace) -> stats, each a
+    subprocess, at CFG-1's size."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    stage_names = {"count", "filter", "compress", "spell", "simplify",
+                   "traverse"}
+    with tempfile.TemporaryDirectory() as tmp:
+        def ga_torch(*args):
+            proc = subprocess.run(
+                [sys.executable, "-m", "genome_assembler_tpu_torch.cli", *args],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=300,
+            )
+            check(proc.returncode == 0, f"ga-torch {args[0]} exited "
+                  f"{proc.returncode}: {proc.stderr[-2000:]}")
+            return proc
+
+        t0 = time.perf_counter()
+        ga_torch("simulate", "--genome-len", "48502", "--genome-seed", "1020",
+                 "--coverage", "100", "--error-rate", "0.01", "--read-seed",
+                 "1021", "--out", "reads.txt", "--genome-out", "genome.fa")
+        asm = ga_torch("assemble", "--reads", "reads.txt", "-k", "31",
+                       "--min-count", "5", "--out", "contigs.fa", "--gfa",
+                       "graph.gfa", "--stats", "--metrics-out", "m.json",
+                       "--trace-dir", "trace")
+        stats = ga_torch("stats", "contigs.fa")
+        line = json.loads(stats.stdout)
+        check(line["contigs"] >= 1 and line["total_bp"] > 45_000,
+              f"ga-torch stats: {stats.stdout.strip()}")
+        check(stats.stdout.strip() in asm.stderr,
+              "assemble --stats and stats disagree")
+        with open(os.path.join(tmp, "graph.gfa")) as fh:
+            check(fh.readline().startswith("H\t"), "the GFA has no header")
+        trace = metrics_mod.read_trace(os.path.join(tmp, "trace"))
+        check(stage_names <= set(trace.stages),
+              f"trace stages: {sorted(trace.stages)}")
+        kernels = trace.kernel_names()
+        check(any("extract_canonical" in n for n in kernels),
+              f"no extraction kernel in the trace: {sorted(kernels)[:10]}")
+        busy, span = trace.busy_share("count")
+        with open(os.path.join(tmp, "m.json")) as fh:
+            report = json.load(fh)
+        check({"stages_s", "counters", "derived"} <= set(report),
+              f"--metrics-out keys: {sorted(report)}")
+        frac = report["derived"]["hbm_roofline_frac"]
+        check(report["derived"]["count_bytes_per_s"] > 0 and 0 <= frac < 1,
+              f"derived: {report['derived']}")
+        check(report["device"] == "cuda:0", f"device: {report['device']}")
+        log(f"CLI: simulate -> assemble -> stats in "
+            f"{time.perf_counter() - t0:.1f} s; {stats.stdout.strip()}; "
+            f"trace: {len(trace.device)} device events, "
+            f"{len(kernels)} kernel names, count busy {busy:.4f} s of "
+            f"{span:.4f} s; derived: {json.dumps(report['derived'])}")
+
+
 def main() -> int:
     import torch
 
@@ -586,10 +780,11 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     import genome_assembler_tpu_torch.reference as ref
-    from genome_assembler_tpu_torch.models import pipeline
+    from genome_assembler_tpu_torch.models import acceptance, pipeline
     from genome_assembler_tpu_torch.ops import _build, kmer_torch as kmer
     from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
     from genome_assembler_tpu_torch.parallel import pipeline as dist
+    from genome_assembler_tpu_torch.utils import metrics as metrics_mod
 
     dev = torch.device("cuda", 0)
     kind = card_info(torch)
@@ -606,13 +801,18 @@ def main() -> int:
                                                        kmer, dev)
     phase_mesh_cfg1(torch, ref, dist, mesh_mod)
     by_path["cfg4_gathered"], cfg4_err, cfg4 = phase_cfg4(
-        torch, ref, pipeline, dist, mesh_mod, kmer, dev)
+        torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev)
     err = max(err, cfg4_err)
     by_path["cfg4_sharded_graph"] = phase_cfg4_sharded(torch, ref, dist,
                                                        mesh_mod, kmer, *cfg4)
     del cfg4
     phase_resume(torch, ref, pipeline, dist, mesh_mod, cfg2_reads, cfg2_cap,
                  dev)
+    by_path["cfg2_upload_ring"] = phase_upload(
+        torch, ref, pipeline, metrics_mod, kmer, cfg2_reads, cfg2_cap, dev)
+    del cfg2_reads
+    by_path["accept_0_1_2_5"] = phase_accept(torch, acceptance, kmer)
+    phase_cli(metrics_mod)
     foreign = sorted(
         name for name in sys.modules
         if name == "jax" or name.startswith("jax.")

@@ -10,15 +10,20 @@ reduction -> host simplification and traversal -> contigs.
 
   * ``utils``  -- explicit device resolution, the int64 key-limb layout,
                   the 2-bit data model (``dna``), ``AssemblyConfig``,
-                  ``Metrics``, the read simulator, the native read loader.
+                  ``Metrics`` and ``torch.profiler`` tracing, the upload
+                  ring of the streamed counters (``upload``), the read
+                  simulator, the native read loader.
   * ``ops``    -- extraction kernel + plain torch version, counting, key
                   word ops, unitig compression, the NumPy extraction
                   oracle (``kmer_ref``).
   * ``host``   -- graph semantics, simplification, traversal, stats and
                   the spelling step (NumPy and pure Python).
-  * ``models`` -- the pipeline entry point ``assemble_torch`` and the
-                  NumPy oracle ``assemble_oracle``.
+  * ``models`` -- the pipeline entry point ``assemble_torch``, the
+                  NumPy oracle ``assemble_oracle`` and the acceptance
+                  runners (``acceptance``).
   * ``parallel`` -- the mesh of shards, the sharded count and graph.
+  * ``cli``, ``verify_reference`` -- the ``ga-torch`` command line and the
+                  parity harness against an upstream checkout.
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``genome_assembler_tpu``: the framework-free host half of the reference

@@ -1,10 +1,16 @@
 """Command-line front end of the PyTorch/CUDA port.
 
+    ga-torch simulate --preset lambda --coverage 100 --out reads.txt
     ga-torch assemble --reads reads.txt -k 31 --out contigs.fa
     ga-torch assemble --preset toy10k --coverage 100 -k 25   # simulate + assemble
+    ga-torch assemble --reads reads.txt --backend oracle     # host oracle, no device
     ga-torch assemble --reads reads.txt --backend dist --devices 4   # 4 shards
     ga-torch assemble --reads reads.txt --backend dist --sharded-graph
+    ga-torch assemble --reads reads.txt --gfa g.gfa --stats --trace-dir trace/
     ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
+    ga-torch stats contigs.fa
+    ga-torch accept 0 1 2 --device cuda
+    ga-torch verify-reference /path/to/reference
     python -m genome_assembler_tpu_torch.cli assemble --device cuda ...
 
 ``--device`` defaults to ``cuda``; without a CUDA device the command fails
@@ -12,7 +18,9 @@
 count over ``--devices`` shards placed round-robin on the visible GPUs
 (``--device cuda``), on one named device (``cuda:N``) or on the CPU
 (``cpu``); ``--sharded-graph`` keeps the graph stages sharded as well
-instead of gathering the table onto one device. Read parsing, FASTA output and
+instead of gathering the table onto one device. ``--trace-dir`` wraps the
+run in ``torch.profiler`` and leaves a Chrome trace there, every stage a
+named span. Read parsing, FASTA output and
 the read simulator are the port's own copies of the reference package's
 (``read_sequences``, ``write_fasta``, ``utils.io_native``,
 ``utils.simulate``).
@@ -27,7 +35,7 @@ import time
 import numpy as np
 
 from .utils.config import AssemblyConfig
-from .utils.dna import INVALID_CODE, encode_seq
+from .utils.dna import INVALID_CODE, decode_seq, encode_seq
 from .utils.simulate import GENOME_PRESETS, preset_genome, simulate_genome, simulate_reads
 
 
@@ -140,9 +148,30 @@ def _simulated_reads(args) -> tuple[np.ndarray, list[np.ndarray]]:
     return rs.codes, genomes
 
 
-def _load_reads(path: str) -> np.ndarray:
+def cmd_simulate(args) -> int:
+    codes, genomes = _simulated_reads(args)
+    out = open(args.out, "w") if args.out else sys.stdout
+    for row in codes:
+        out.write(decode_seq(row) + "\n")
+    if args.out:
+        out.close()
+    if args.genome_out:
+        with open(args.genome_out, "w") as fh:
+            write_fasta([decode_seq(g) for g in genomes], fh, prefix="genome")
+    total = sum(len(g) for g in genomes)
+    chrom = f" in {len(genomes)} chromosomes" if len(genomes) > 1 else ""
+    print(
+        f"simulated {len(codes)} reads x {codes.shape[1]} bp"
+        f" (genome {total} bp{chrom})",
+        file=sys.stderr,
+    )
+    return 0
+
+
+def _load_reads(path: str, ragged_ok: bool = False) -> np.ndarray | list[str]:
     """Reads file -> [B, L] uint8 codes; ragged reads pad with
-    INVALID_CODE, whose windows are masked like Ns."""
+    INVALID_CODE, whose windows are masked like Ns, or, with
+    ``ragged_ok`` (the oracle's dict counting path), stay strings."""
     from .utils.io_native import load_reads
 
     native = load_reads(path)  # C++ mmap fast path
@@ -151,6 +180,8 @@ def _load_reads(path: str) -> np.ndarray:
     seqs = read_sequences(path)
     if not seqs:
         raise SystemExit(f"no reads found in {path}")
+    if ragged_ok and len({len(s) for s in seqs}) > 1:
+        return seqs
     max_len = max(len(s) for s in seqs)
     reads = np.full((len(seqs), max_len), INVALID_CODE, dtype=np.uint8)
     for i, s in enumerate(seqs):
@@ -171,16 +202,78 @@ def _dist_mesh(args, device):
     return build_mesh(args.devices, devices=devices)
 
 
-def cmd_assemble(args) -> int:
+def _graph_outputs(args, graph) -> tuple[list[str], list[float]]:
+    """The outputs every graph-producing backend shares: the optional GFA
+    1.0 export, and (contigs, per-contig mean k-mer coverage) from one
+    traversal."""
+    if args.gfa:
+        from .host.stats import write_gfa
+
+        with open(args.gfa, "w") as fh:
+            write_gfa(graph, fh)
     from .host.traverse import (
         emit_contigs_euler_with_cov,
         emit_contigs_with_cov,
     )
-    from .utils.metrics import Metrics
+
+    with_cov = (
+        emit_contigs_euler_with_cov(graph)
+        if args.emit == "euler"
+        else emit_contigs_with_cov(graph)
+    )
+    return [s for s, _ in with_cov], [c for _, c in with_cov]
+
+
+def _write_contigs(args, contigs, coverages, n_reads, dt, where) -> None:
+    if args.stats:
+        from .host.stats import stats_json
+
+        print(stats_json(contigs), file=sys.stderr)
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        write_fasta(contigs, out, coverages=coverages)
+    finally:
+        if args.out:
+            out.close()
+    total = sum(len(c) for c in contigs)
+    print(
+        f"assembled {n_reads} reads -> {len(contigs)} contig(s), "
+        f"{total} bp total in {dt:.2f}s [{where}]",
+        file=sys.stderr,
+    )
+
+
+def _assemble_oracle(args) -> int:
+    """--backend oracle: the NumPy/dict oracle on the host; no device is
+    touched, and ragged reads take its dict counting path."""
+    from .models.oracle import assemble_oracle
+
+    t0 = time.perf_counter()
+    reads = (_load_reads(args.reads, ragged_ok=True) if args.reads
+             else _simulated_reads(args)[0])
+    cfg = AssemblyConfig(
+        k=args.k,
+        min_count=args.min_count,
+        tip_len=args.tip_len,
+        bubble_len=args.bubble_len,
+        read_len=(reads.shape[1] if isinstance(reads, np.ndarray)
+                  else args.read_len),
+        **_batch(args),
+    )
+    contigs = assemble_oracle(reads, cfg, emit=args.emit)
+    _write_contigs(args, contigs, None, len(reads),
+                   time.perf_counter() - t0, "oracle")
+    return 0
+
+
+def cmd_assemble(args) -> int:
+    from .utils.metrics import Metrics, profiler_trace
 
     from .models.pipeline import assemble_torch
     from .utils.device import resolve_device
 
+    if args.backend == "oracle":
+        return _assemble_oracle(args)
     device = resolve_device(args.device)  # fails before any work
     mesh = _dist_mesh(args, device) if args.backend == "dist" else None
     if args.minimizer_len is not None and mesh is None:
@@ -207,53 +300,35 @@ def cmd_assemble(args) -> int:
         table_capacity=args.table_capacity,
         stream_checkpoint_every=args.stream_checkpoint_every,
     )
-    if mesh is None:
-        _, graph = assemble_torch(reads, cfg, device=device, **common)
-        where = f"torch {device}"
-    else:
-        from .parallel import pipeline as dist
+    with profiler_trace(args.trace_dir):
+        if mesh is None:
+            _, graph = assemble_torch(reads, cfg, device=device, **common)
+            where = f"torch {device}"
+        else:
+            from .parallel import pipeline as dist
 
-        assemble = (dist.assemble_distributed_sharded if args.sharded_graph
-                    else dist.assemble_distributed)
-        _, graph = assemble(
-            reads, cfg, mesh, minimizer_len=args.minimizer_len, **common
-        )
-        where = f"dist: {mesh}" + (", sharded graph" if args.sharded_graph
-                                   else "")
-    with_cov = (
-        emit_contigs_euler_with_cov(graph)
-        if args.emit == "euler"
-        else emit_contigs_with_cov(graph)
-    )
-    contigs = [s for s, _ in with_cov]
+            assemble = (dist.assemble_distributed_sharded
+                        if args.sharded_graph else dist.assemble_distributed)
+            _, graph = assemble(
+                reads, cfg, mesh, minimizer_len=args.minimizer_len, **common
+            )
+            where = f"dist: {mesh}" + (", sharded graph" if args.sharded_graph
+                                       else "")
+    contigs, coverages = _graph_outputs(args, graph)
     dt = time.perf_counter() - t0
     if args.metrics_out:
-        # stage seconds and counters only; no derived rates are written
+        # Metrics.report() as the reference writes it (stages_s, counters,
+        # derived), and beside it where the run was placed
         import json
 
-        report = {
-            "device": str(device),
-            "stages_s": metrics.stages,
-            "counters": metrics.counters,
-        }
+        report = dict(metrics.report(), device=str(device))
         if mesh is not None:
             report["shards"] = mesh.size
             report["shard_devices"] = [str(d) for d in mesh.devices]
         with open(args.metrics_out, "w") as fh:
             json.dump(report, fh, indent=2)
             fh.write("\n")
-    out = open(args.out, "w") if args.out else sys.stdout
-    try:
-        write_fasta(contigs, out, coverages=[c for _, c in with_cov])
-    finally:
-        if args.out:
-            out.close()
-    total = sum(len(c) for c in contigs)
-    print(
-        f"assembled {reads.shape[0]} reads -> {len(contigs)} contig(s), "
-        f"{total} bp total in {dt:.2f}s [{where}]",
-        file=sys.stderr,
-    )
+    _write_contigs(args, contigs, coverages, reads.shape[0], dt, where)
     return 0
 
 
@@ -273,9 +348,51 @@ def cmd_reshard(args) -> int:
     return 0
 
 
+def cmd_stats(args) -> int:
+    """Contig statistics of an existing FASTA or lines file, as one JSON
+    line (no assembly is run)."""
+    from .host.stats import stats_json
+
+    print(stats_json(read_sequences(args.contigs)))
+    return 0
+
+
+def cmd_accept(args) -> int:
+    """Run acceptance configs; one JSON line a config as it finishes;
+    exit 1 if any fails."""
+    from .models.acceptance import RUNNERS, run
+
+    ids = args.configs if args.configs else sorted(RUNNERS)
+
+    def emit(r):
+        print(r.to_json(), flush=True)
+
+    results = run(
+        ids, on_result=emit, scale=args.scale, warm=args.warm,
+        force_oracle_check=args.force_oracle_check, device=args.device,
+        devices=args.devices,
+    )
+    return 0 if all(r.passed for r in results) else 1
+
+
+def _cmd_verify_reference(args) -> int:
+    from .verify_reference import cmd_verify_reference
+
+    return cmd_verify_reference(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ga-torch", description=__doc__)
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="debug logging (per-stage timings)")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    ps = sub.add_parser("simulate", help="simulate reads from a genome")
+    _add_sim_args(ps)
+    ps.add_argument("--out", default=None, help="reads output (default stdout)")
+    ps.add_argument("--genome-out", default=None, help="write genome FASTA")
+    ps.set_defaults(fn=cmd_simulate)
+
     pa = sub.add_parser("assemble", help="assemble reads into contigs")
     pa.add_argument("--reads", default=None,
                     help="reads file (lines, FASTA or FASTQ)")
@@ -305,12 +422,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --checkpoint: also snapshot the streaming "
                     "counter's table and batch cursor every N batches")
     pa.add_argument("--metrics-out", default=None,
-                    help="write per-stage seconds (JSON) here")
+                    help="write the per-stage metrics JSON here (stages_s, "
+                    "counters, derived rates; torch and dist backends)")
+    pa.add_argument("--stats", action="store_true",
+                    help="print contig summary stats (N50 etc.) to stderr")
+    pa.add_argument("--gfa", default=None,
+                    help="write the simplified unitig graph as GFA 1.0 "
+                    "(torch and dist backends)")
+    pa.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the run "
+                    "here (torch and dist backends)")
     pa.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu; never falls back")
-    pa.add_argument("--backend", choices=["torch", "dist"], default="torch",
+    pa.add_argument("--backend", choices=["torch", "dist", "oracle"],
+                    default="torch",
                     help="torch: one device (default); dist: the count is "
-                    "hash-sharded over --devices shards")
+                    "hash-sharded over --devices shards; oracle: the "
+                    "NumPy/dict oracle on the host (no device)")
     pa.add_argument("--devices", type=int, default=None,
                     help="shard count for --backend dist (default: one per "
                     "visible GPU); a multiple of the device count")
@@ -337,11 +465,71 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--batch-reads", type=int, default=None)
     rp.add_argument("--table-capacity", type=int, default=None)
     rp.set_defaults(fn=cmd_reshard)
+
+    pst = sub.add_parser(
+        "stats",
+        help="contig statistics (count/bases/N50/longest) of a FASTA or "
+        "line file, as one JSON line",
+    )
+    pst.add_argument("contigs", help="contigs file (FASTA or plain lines)")
+    pst.set_defaults(fn=cmd_stats)
+
+    pc = sub.add_parser(
+        "accept", help="run acceptance configs (0-4, 5: circular, 6: "
+        "multi-chromosome) and print one JSON line each",
+    )
+    pc.add_argument("configs", nargs="*", type=int, default=None,
+                    help="config ids (default: all)")
+    pc.add_argument("--scale", type=float, default=1.0,
+                    help="shrink genomes and coverage, in (0, 1]")
+    pc.add_argument("--warm", action="store_true",
+                    help="an untimed first pass before each timed run")
+    pc.add_argument("--force-oracle-check", action="store_true",
+                    help="cross-check against the dict oracle at any scale")
+    pc.add_argument("--device", default="cuda",
+                    help="cuda (default), cuda:N or cpu; never falls back")
+    pc.add_argument("--devices", type=int, default=None,
+                    help="shard count of configs 4 and 6 (default: one per "
+                    "visible GPU)")
+    pc.set_defaults(fn=cmd_accept)
+
+    pv = sub.add_parser(
+        "verify-reference",
+        help="run the upstream reference assembler and diff contigs",
+    )
+    pv.add_argument("path", help="reference checkout")
+    pv.add_argument("--reads", default=None,
+                    help="reads file to feed both assemblers "
+                    "(default: simulate CFG 0)")
+    pv.add_argument("--cmd", default=None,
+                    help="shell template to run the reference, with {entry} "
+                    "and {reads} placeholders")
+    pv.add_argument("-k", type=int, default=25,
+                    help="k tried first in the sweep")
+    pv.add_argument("--ks", default=None,
+                    help="comma-separated k sweep (default: k,25,31,21)")
+    pv.add_argument("--emits", default=None,
+                    help="comma-separated emission modes to sweep "
+                    "(default: unitigs,euler)")
+    pv.add_argument("--min-count", type=int, default=1)
+    pv.add_argument("--use-ref-data", action="store_true",
+                    help="run on the reference's bundled read sets")
+    pv.add_argument("--device", default="cuda",
+                    help="device of the torch backend: cuda (default), "
+                    "cuda:N or cpu")
+    pv.set_defaults(fn=_cmd_verify_reference)
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    if args.verbose:
+        import logging
+
+        logging.basicConfig(
+            level=logging.DEBUG,
+            format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        )
     try:
         return args.fn(args)
     except (ValueError, RuntimeError, FileNotFoundError) as e:

@@ -7,11 +7,15 @@ Counterpart of ``genome_assembler_tpu/models/pipeline.py::assemble_tpu``:
   compaction + coverage filter             ops.count_torch
   unitig compression (odd k)               ops.unitig_torch
   spelling reduction                       ops.unitig_torch + host.dbg
-  simplification + traversal               shared NumPy host modules
+  simplification + traversal               the port's own NumPy host
+                                           modules (host.*)
 
-Reads are packed on the host (4 bases per byte, ambiguous bases as a
-separate bit plane) and uploaded per batch; everything from extraction
-to the spelling reduction stays on the device. Uploads are synchronous.
+Reads cross to the device as raw one-byte codes and are packed there (4
+bases per byte, ambiguous bases as a separate bit plane) for the kernel;
+everything from the pack to the spelling reduction stays on the device.
+The streaming counter uploads through ``utils.upload.UploadRing``: pinned
+host slots, a copy stream, two batches queued ahead of the one being
+counted, and nothing between two batches that waits for the device.
 Even k takes the reference's host-dict graph branch. The streaming
 counter can snapshot its table and batch cursor mid-stream and resume
 from such a snapshot, in the reference's format.
@@ -30,45 +34,57 @@ from ..host.simplify import simplify_counts
 from ..host.simplify_arrays import simplify_arrays_to_graph
 from ..host.traverse import emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
-from ..utils.dna import (
-    has_ambiguous,
-    pack_codes,
-    pack_invalid_mask,
-)
-from ..utils.metrics import Metrics
+from ..utils.dna import has_ambiguous
+from ..utils.metrics import Metrics, log
 
 from ..host.dbg import spell_device_arrays
 from ..ops import count_torch
 from ..ops.count_torch import CountTable
-from ..ops.kmer_torch import extract_canonical_flat
+from ..ops.kmer_torch import (
+    extract_canonical_flat,
+    pack_codes_device,
+    pack_invalid_device,
+)
 from ..ops.unitig_torch import compress_unitigs_device
 from ..utils.device import resolve_device, synchronize
 from ..utils.keys import limbs_to_words, n_limbs
+from ..utils.upload import UploadRing
 
 # Above this many windows the counter streams batches into a bounded
 # table instead of counting all windows in one shot (the reference's
 # default, pipeline.py SINGLE_SHOT_WINDOWS).
 SINGLE_SHOT_WINDOWS = 1 << 27
+# Batches uploaded ahead of the one being counted (the reference's
+# prefetch depth).
+UPLOAD_PREFETCH = 2
 
 
 @contextlib.contextmanager
 def timed_stage(m: Metrics, name: str, devices):
     """Wall time of one stage, closed by a synchronise of ``devices`` (one
-    device or several) so queued kernels are charged to the stage that
-    queued them."""
+    device or several; every stream of each, the copy streams too) so
+    queued work is charged to the stage that queued it. The stage is a
+    ``record_function`` span of a profiler trace."""
     t0 = time.perf_counter()
-    yield
-    if isinstance(devices, torch.device):
-        devices = [devices]
-    for dev in dict.fromkeys(devices):
-        synchronize(dev)
-    m.stages[name] = m.stages.get(name, 0.0) + time.perf_counter() - t0
+    with torch.profiler.record_function(name):
+        yield
+        if isinstance(devices, torch.device):
+            devices = [devices]
+        for dev in dict.fromkeys(devices):
+            synchronize(dev)
+    dt = time.perf_counter() - t0
+    m.stages[name] = m.stages.get(name, 0.0) + dt
+    log.debug("stage %s: %.3fs", name, dt)
 
 
-def _upload(arr: np.ndarray | None, device: torch.device):
-    if arr is None:
-        return None
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+def pack_on_device(codes: torch.Tensor, has_invalid: bool):
+    """Raw [B, L] codes on their device -> (packed codes, invalid bits or
+    None): the kernel's inputs. The one pack route of the port: the bytes
+    equal ``utils.dna.pack_codes`` / ``pack_invalid_mask`` of the same rows."""
+    return (
+        pack_codes_device(codes),
+        pack_invalid_device(codes) if has_invalid else None,
+    )
 
 
 def _count_batch(
@@ -203,6 +219,7 @@ def count_reads_device(
     stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None,
     abort_after_batch: int = 0,
+    _plain_upload: bool = False,
 ) -> CountTable:
     """Count canonical k-mers of [B, L] reads on ``device``.
 
@@ -212,7 +229,10 @@ def count_reads_device(
     SINGLE_SHOT_WINDOWS. Streaming uploads ``cfg.batch_reads`` reads per
     batch; the first batch counts straight into a table padded to the
     capacity, every later one merges its raw keys into it. The kernel
-    takes any batch size, so the short last batch is not padded.
+    takes any batch size, so the short last batch is not padded. On a
+    card the batches go through an ``UploadRing`` (``UPLOAD_PREFETCH``
+    batches ahead); on the CPU, or with ``_plain_upload`` (the on-card
+    checks' yardstick), each batch is moved by a plain ``.to(device)``.
 
     stream_checkpoint + stream_checkpoint_every=N: every N streamed
     batches, snapshot the carried table and the batch cursor to
@@ -228,17 +248,15 @@ def count_reads_device(
     total_windows = b * (length - cfg.k + 1)
     has_invalid = has_ambiguous(reads)
 
-    def upload(rows):
-        inv = pack_invalid_mask(rows) if has_invalid else None
-        return _upload(pack_codes(rows), device), _upload(inv, device)
-
     if table_capacity is None and total_windows <= SINGLE_SHOT_WINDOWS:
         if resume_stream_from is not None:
             raise ValueError(
                 "resume_stream_from requires the streaming path; pass the "
                 "table_capacity the checkpointed run used"
             )
-        packed, inv = upload(reads)
+        packed, inv = pack_on_device(
+            torch.from_numpy(reads).to(device), has_invalid
+        )
         return _count_batch(packed, length, cfg.k, inv)
 
     capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
@@ -269,17 +287,29 @@ def count_reads_device(
             params=ck_params,
         )
 
-    for i in range(start_idx, len(starts)):
-        packed, inv = upload(reads[starts[i] : starts[i] + batch])
-        if table is None:
-            table = _count_batch(packed, length, cfg.k, inv, out_cap=capacity)
-        else:
-            table = _stream_step(table, packed, length, cfg.k, inv)
-        after_stream_batch(
-            i, start_idx, len(starts), every=stream_checkpoint_every,
-            save=None if stream_checkpoint is None else save,
-            abort_after_batch=abort_after_batch,
-        )
+    def fill(i, planes):
+        rows = reads[starts[i] : starts[i] + batch]
+        planes[0][: rows.shape[0]] = rows
+        return rows.shape[0]
+
+    ring = UploadRing(
+        [(device, min(batch, b))], [length], depth=UPLOAD_PREFETCH,
+        pipelined=False if _plain_upload else None,
+    )
+    with ring:
+        for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
+            packed, inv = pack_on_device(codes, has_invalid)
+            if table is None:
+                table = _count_batch(packed, length, cfg.k, inv,
+                                     out_cap=capacity)
+            else:
+                table = _stream_step(table, packed, length, cfg.k, inv)
+            # the table after batch i, whatever is already uploaded
+            after_stream_batch(
+                i, start_idx, len(starts), every=stream_checkpoint_every,
+                save=None if stream_checkpoint is None else save,
+                abort_after_batch=abort_after_batch,
+            )
     if table is None:  # no reads at all
         table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
     return table
@@ -470,6 +500,13 @@ def assemble_torch(
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
             )
+        # the reads in, the keys out and in again to the sort; the
+        # reference's figure has 4-byte words, the port's keys are
+        # n_limbs(k) 8-byte limbs
+        m.count(
+            "count_bytes",
+            reads.size + 2 * reads.shape[0] * wc * n_limbs(cfg.k) * 8,
+        )
     return assemble_from_table(
         table, cfg, m, dev, emit=emit, checkpoint=checkpoint,
         return_graph=return_graph,

@@ -26,6 +26,11 @@ few whole reads in shared memory and writes their keys as one
 contiguous span of 16-byte stores. ``launch_plan`` sizes the block from
 L and k; a shape whose rows do not fit a block's shared memory raises.
 
+``pack_codes_device`` and ``pack_invalid_device`` make the kernel's
+inputs from raw one-byte codes on the device (plain torch ops, the bytes
+of ``utils.dna.pack_codes`` / ``pack_invalid_mask``): the streamed
+counters upload raw codes and pack them there.
+
 Output contract: ``[B * (L-k+1), n_limbs]`` int64 limbs (``utils.keys``
 layout), row-major over (read, window). Windows of rows >= ``n_valid``
 and windows that touch an ambiguous base are the sentinel.
@@ -53,6 +58,38 @@ def unpack_invalid_mask(packed: torch.Tensor, read_len: int) -> torch.Tensor:
     bits = [(packed >> i) & 1 for i in range(8)]
     bad = torch.stack(bits, dim=-1).reshape(packed.shape[0], -1)
     return bad[:, :read_len].bool()
+
+
+def pack_codes_device(codes: torch.Tensor) -> torch.Tensor:
+    """[B, L] uint8 codes on any device -> [B, ceil(L/4)] uint8, 4 bases a
+    byte: ``utils.dna.pack_codes`` in plain torch ops, byte for byte (an
+    ambiguous base packs as its low 2 bits)."""
+    b, length = codes.shape
+    pad = (-length) % 4
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    quads = (codes & 3).reshape(b, -1, 4)
+    out = quads[:, :, 0]
+    for j in range(1, 4):
+        out = out | (quads[:, :, j] << (2 * j))
+    return out.contiguous()
+
+
+def pack_invalid_device(codes: torch.Tensor) -> torch.Tensor:
+    """[B, L] uint8 codes on any device -> [B, ceil(L/8)] uint8 bits of the
+    ambiguous bases (codes > 3): ``utils.dna.pack_invalid_mask`` in plain
+    torch ops, except that a batch without any gives zeros, not None (the
+    extracted keys are the same, and the device is not read to find out)."""
+    b, length = codes.shape
+    bad = (codes > 3).to(torch.uint8)
+    pad = (-length) % 8
+    if pad:
+        bad = torch.nn.functional.pad(bad, (0, pad))
+    octs = bad.reshape(b, -1, 8)
+    out = octs[:, :, 0]
+    for j in range(1, 8):
+        out = out | (octs[:, :, j] << j)
+    return out.contiguous()
 
 
 def extract_canonical_codes_ref(

@@ -80,19 +80,6 @@ def num_hosts(mesh: Mesh) -> int:
     return 1
 
 
-def scatter_rows(mesh: Mesh, host: torch.Tensor, rows: int) -> list[torch.Tensor]:
-    """Upload a [D*rows, ...] host tensor; shard i gets rows
-    [i*rows, (i+1)*rows) on its device. A single-device mesh uploads once
-    and hands out contiguous row views."""
-    if mesh.single_device:
-        whole = host.to(mesh.devices[0])
-        return [whole[i * rows : (i + 1) * rows] for i in range(mesh.size)]
-    return [
-        host[i * rows : (i + 1) * rows].to(dev)
-        for i, dev in enumerate(mesh.devices)
-    ]
-
-
 def all_to_all(mesh: Mesh, send: list[torch.Tensor]) -> list[torch.Tensor]:
     """send[i]: [D, cap, ...] rows shard i sends to each shard ->
     recv[j] = concat over i of send[i][j] ([D * cap, ...]) on shard j's

@@ -31,12 +31,7 @@ import torch
 from ..host.simplify_arrays import simplify_arrays_to_graph
 from ..host.traverse import emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
-from ..utils.dna import (
-    has_ambiguous,
-    key_words,
-    pack_codes,
-    pack_invalid_mask,
-)
+from ..utils.dna import has_ambiguous, key_words
 from ..utils.metrics import Metrics
 
 from ..models.pipeline import (
@@ -45,6 +40,7 @@ from ..models.pipeline import (
     auto_min_count_hist,
     checkpoint_kind,
     load_table,
+    pack_on_device,
     require_checkpoint_kind,
     timed_stage,
 )
@@ -67,6 +63,7 @@ from ..ops.superkmer_torch import (
 )
 from ..utils.keys import SENTINEL, is_sentinel, n_limbs
 from ..utils.keys import snug_capacity
+from ..utils.upload import UploadRing
 from .compress import (
     OVERFLOW_CAPS,
     bucket_pack,
@@ -76,12 +73,15 @@ from .compress import (
     wire_bytes,
 )
 from .mesh import Mesh, all_gather, all_to_all, any_reduce, axis_size
-from .mesh import build_mesh, max_reduce, num_hosts, scatter_rows
+from .mesh import build_mesh, max_reduce, num_hosts
 
 # Above this many windows per shard, the counter streams read batches into
 # carried per-shard tables instead of counting the whole read set at once
 # (the reference's default; tests lower it to force the streamed path).
 DIST_STREAM_WINDOWS = 1 << 24
+# Batches uploaded ahead of the one being routed and merged (the
+# reference's depth for the sharded stream).
+DIST_UPLOAD_PREFETCH = 1
 
 
 def _window_bad(bad: torch.Tensor, k: int) -> torch.Tensor:
@@ -412,43 +412,88 @@ def reshard_sharded_stream_checkpoint(
     )
 
 
+def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int,
+                 any_invalid):
+    """Raw code rows on the shards' devices (one [D*per_dev, L] block on a
+    single-device mesh, else one [per_dev, L] block a shard) -> (packed
+    per shard, invalid bits per shard or None). A single-device mesh
+    packs once and hands out contiguous row views."""
+    planes = [pack_on_device(codes, any_invalid) for codes in blocks]
+    if mesh.single_device:
+        planes = [
+            tuple(None if x is None else x[i * per_dev : (i + 1) * per_dev]
+                  for x in planes[0])
+            for i in range(mesh.size)
+        ]
+    packed, inv = (list(col) for col in zip(*planes))
+    return packed, inv if any_invalid else None
+
+
 def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
                    metrics: Metrics | None):
-    """Pack [D*per_dev, L] host reads and hand each shard its rows on its
-    device: (packed per shard, invalid bits per shard or None)."""
-    packed = pack_codes(rows)
-    h2d = packed.nbytes
-    inv = pack_invalid_mask(rows) if any_invalid else None
-    if inv is not None:
-        h2d += inv.nbytes
+    """One plain upload of [D*per_dev, L] host reads, packed on the shards'
+    devices: (packed per shard, invalid bits per shard or None)."""
     if metrics is not None:
-        metrics.count("h2d_bytes_reads", h2d)
-    packed_s = scatter_rows(mesh, torch.from_numpy(packed), per_dev)
-    inv_s = (
-        None if inv is None
-        else scatter_rows(mesh, torch.from_numpy(inv), per_dev)
+        metrics.count("h2d_bytes_reads", rows.nbytes)
+    host = torch.from_numpy(rows)
+    if mesh.single_device:
+        blocks = [host.to(mesh.devices[0])]
+    else:
+        blocks = [host[i * per_dev : (i + 1) * per_dev].to(dev)
+                  for i, dev in enumerate(mesh.devices)]
+    return _pack_shards(mesh, blocks, per_dev, any_invalid)
+
+
+def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
+                    first: int, any_invalid, metrics: Metrics | None = None,
+                    *, pipelined: bool | None = None):
+    """Batches ``first..`` of a streamed run on the shards, uploaded
+    ``DIST_UPLOAD_PREFETCH`` ahead through an ``UploadRing`` with one copy
+    stream a distinct device (a single-device mesh gets one upload that
+    feeds all its shards): yields (i, packed per shard, invalid bits per
+    shard or None, n_valid per shard). Only the short tail batch is
+    padded; n_valid masks the padding. ``h2d_bytes_reads`` counts the
+    bytes sent."""
+    b, length = reads.shape
+    d = axis_size(mesh)
+
+    def fill(i, planes):
+        start = i * plan.batch_total
+        rows = reads[start : start + plan.batch_total]
+        planes[0][: rows.shape[0]] = rows
+        planes[0][rows.shape[0] :] = 0
+        return plan.batch_total
+
+    targets = (
+        [(mesh.devices[0], plan.batch_total)] if mesh.single_device
+        else [(dev, plan.per_dev) for dev in mesh.devices]
     )
-    return packed_s, inv_s
+    ring = UploadRing(targets, [length], depth=DIST_UPLOAD_PREFETCH,
+                      pipelined=pipelined)
+    with ring:
+        for i, blocks in ring.stream(first, plan.num_batches, fill):
+            if metrics is not None:
+                metrics.count("h2d_bytes_reads", plan.batch_total * length)
+            packed, inv = _pack_shards(mesh, [blk[0] for blk in blocks],
+                                       plan.per_dev, any_invalid)
+            start = i * plan.batch_total
+            n_valid = [
+                int(min(max(b - start - plan.per_dev * s, 0), plan.per_dev))
+                for s in range(d)
+            ]
+            yield i, packed, inv, n_valid
 
 
 def _stream_batch(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan, i: int,
-                  any_invalid, metrics: Metrics | None = None):
-    """Batch ``i`` of a streamed run on the shards: (packed per shard,
-    invalid bits per shard or None, n_valid per shard). Only the short
-    tail batch is padded; n_valid masks the padding."""
-    b, length = reads.shape
-    start = i * plan.batch_total
-    rows = reads[start : start + plan.batch_total]
-    if rows.shape[0] < plan.batch_total:
-        rows = np.concatenate(
-            [rows, np.zeros((plan.batch_total - rows.shape[0], length),
-                            np.uint8)]
-        )
-    packed, inv = _upload_shards(mesh, rows, plan.per_dev, any_invalid,
-                                 metrics)
-    n_valid = [int(min(max(b - start - plan.per_dev * s, 0), plan.per_dev))
-               for s in range(axis_size(mesh))]
-    return packed, inv, n_valid
+                  any_invalid):
+    """Batch ``i`` alone, by a plain upload (for probes and checks):
+    (packed per shard, invalid bits per shard or None, n_valid)."""
+    batches = _stream_batches(mesh, reads, plan, i, any_invalid,
+                              pipelined=False)
+    try:
+        return next(batches)[1:]
+    finally:
+        batches.close()
 
 
 def _run_distributed_stream(
@@ -505,9 +550,9 @@ def _run_distributed_stream(
             params=plan.ck_params,
         )
 
-    for i in range(start_batch, plan.num_batches):
-        packed, inv, n_valid = _stream_batch(mesh, reads, plan, i,
-                                             any_invalid, metrics)
+    for i, packed, inv, n_valid in _stream_batches(
+        mesh, reads, plan, start_batch, any_invalid, metrics
+    ):
         tables = step(tables, packed, n_valid, inv)
         if metrics is not None:
             metrics.count("a2a_bytes_count", a2a_step)

@@ -1,10 +1,18 @@
 """Structured per-stage metrics (SURVEY.md §5 observability).
 
 The port's copy of the reference package's ``utils/metrics.py``: the
-``Metrics`` class as it is there, without that module's profiler helpers.
-It emits structured per-stage wall-clock + throughput counters consumable
-by the bench configs (BASELINE.md CFG 2-4): k-mers/s, reads/s, bytes/s vs
-the HBM roofline, all-to-all volume, weak-scaling efficiency.
+``Metrics`` class as it is there, and ``torch.profiler`` in the place of
+that module's JAX profiler helpers. It emits structured per-stage
+wall-clock + throughput counters consumable by the bench configs
+(BASELINE.md CFG 2-4): k-mers/s, reads/s, bytes/s vs the HBM roofline,
+all-to-all volume, weak-scaling efficiency.
+
+Tracing: every stage runs inside ``torch.profiler.record_function(name)``
+(next to free while no profiler is on), and ``profiler_trace(trace_dir)``
+wraps a run in ``torch.profiler.profile`` and writes one Chrome trace,
+``trace_dir/TRACE_FILE``. ``read_trace`` reads such a file back: the
+stage spans, the device's kernels and copies, and the device's busy share
+of a stage.
 """
 
 from __future__ import annotations
@@ -12,12 +20,16 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import os
 import time
 from dataclasses import dataclass, field
+
+import torch
 
 log = logging.getLogger("genome_assembler_tpu_torch")
 
 HBM_PEAK_BYTES_S = 3.35e12  # NVIDIA H100 SXM, 80 GB HBM3 (data sheet)
+TRACE_FILE = "trace.json"
 
 
 @dataclass
@@ -29,9 +41,11 @@ class Metrics:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        """Time a pipeline stage; nested stages accumulate independently."""
+        """Time a pipeline stage; nested stages accumulate independently.
+        The stage is a ``record_function`` span of a profiler trace."""
         t0 = time.perf_counter()
-        yield
+        with torch.profiler.record_function(name):
+            yield
         dt = time.perf_counter() - t0
         self.stages[name] = self.stages.get(name, 0.0) + dt
         log.debug("stage %s: %.3fs", name, dt)
@@ -75,3 +89,70 @@ class Metrics:
                 fh.write(text + "\n")
         return text
 
+
+@contextlib.contextmanager
+def profiler_trace(trace_dir: str | None = None):
+    """Whole-run ``torch.profiler`` trace: host activities and, when a
+    card is there, the device's. Writes ``trace_dir/TRACE_FILE`` (Chrome
+    trace format, readable by Perfetto and ``read_trace``) when the run
+    ends; without a ``trace_dir`` it does nothing."""
+    if not trace_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+
+
+@dataclass
+class Trace:
+    """What ``read_trace`` keeps of a Chrome trace; times in microseconds."""
+
+    stages: dict[str, list[tuple[float, float]]]  # name -> host (start, end)
+    device: list[tuple[float, float, str]]  # kernels and copies (start, end, name)
+
+    def kernel_names(self) -> set[str]:
+        return {name for _, _, name in self.device}
+
+    def busy_share(self, stage: str) -> tuple[float, float]:
+        """(device-busy seconds, wall seconds) of every span of ``stage``:
+        the union of the device's kernel and copy intervals that begin
+        inside the span, over the span. A stage closes with a device
+        synchronise, so its device work ends inside it."""
+        busy = wall = 0.0
+        work = sorted(self.device)
+        for lo, hi in self.stages[stage]:
+            wall += hi - lo
+            reach = lo
+            for start, end, _ in work:
+                if lo <= start < hi and end > reach:
+                    busy += end - max(start, reach)
+                    reach = end
+        return busy / 1e6, wall / 1e6
+
+
+def read_trace(path: str) -> Trace:
+    """Read a trace written by ``profiler_trace`` (``path`` is the file or
+    its directory)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, TRACE_FILE)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    stages: dict[str, list[tuple[float, float]]] = {}
+    device = []
+    for ev in events:
+        if ev.get("ph") != "X":
+            continue
+        span = (float(ev["ts"]), float(ev["ts"]) + float(ev.get("dur", 0)))
+        cat = ev.get("cat")
+        if cat == "user_annotation":
+            stages.setdefault(ev["name"], []).append(span)
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            device.append(span + (ev["name"],))
+    return Trace(stages, device)

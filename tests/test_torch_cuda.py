@@ -184,3 +184,111 @@ def test_sharded_graph_on_cuda_matches_cpu(cuda_device):
             assert torch.equal(a.cpu(), b), field
     assert (gpu.num_unitigs, gpu.overflow) == (cpu.num_unitigs, cpu.overflow)
     assert gpu_contigs == cpu_contigs == ref.assemble_oracle(rs.codes, cfg)
+
+
+def _noisy_reads(genome_len=20_000, coverage=40, seed=51, n_rate=0.002):
+    genome = ref.simulate_genome(genome_len, seed=seed)
+    reads = ref.simulate_reads(genome, coverage=coverage, read_len=100,
+                               seed=seed + 1, error_rate=0.01).codes.copy()
+    reads[np.random.default_rng(seed).random(reads.shape) < n_rate] = 4
+    return reads
+
+
+def _tables_equal(a, b):
+    return (int(a.num_unique) == int(b.num_unique)
+            and bool(a.overflow) == bool(b.overflow)
+            and torch.equal(a.limbs, b.limbs)
+            and torch.equal(a.counts, b.counts))
+
+
+@pytest.mark.parametrize("batch", [8000, 700, 333],
+                         ids=["1_batch", "12_batches", "25_batches"])
+def test_upload_ring_equals_plain_upload(cuda_device, batch):
+    """Many batches through the pinned ring (a slot is refilled while
+    later batches are in flight) against the same batches uploaded one by
+    one: the tables are bit-equal, and every batch launched the kernel."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+
+    reads = _noisy_reads()  # 8000 reads, Ns; 700 and 333 leave a short tail
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=batch)
+    kw = dict(device=cuda_device, table_capacity=1 << 18)
+    before = kmer_torch.extract_canonical_flat.launches
+    ring = count_reads_device(reads, cfg, **kw)
+    assert kmer_torch.extract_canonical_flat.launches - before == -(
+        -reads.shape[0] // batch)
+    plain = count_reads_device(reads, cfg, _plain_upload=True, **kw)
+    cpu = count_reads_device(reads, cfg, device="cpu", table_capacity=1 << 18)
+    torch.cuda.synchronize()
+    assert ring.limbs.is_cuda and _tables_equal(ring, plain)
+    assert _tables_equal(ring._replace(
+        limbs=ring.limbs.cpu(), counts=ring.counts.cpu(),
+        num_unique=ring.num_unique.cpu(), overflow=ring.overflow.cpu()), cpu)
+
+
+def test_checkpoint_with_prefetch_in_flight(cuda_device, tmp_path):
+    """A snapshot taken while the ring is two batches ahead holds the table
+    after its own batch only: the file equals the plain route's, byte for
+    byte, and the resumed table the uninterrupted one."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+
+    reads = _noisy_reads()
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=700)
+    kw = dict(device=cuda_device, table_capacity=1 << 18)
+    full = count_reads_device(reads, cfg, **kw)
+    files = {}
+    for name, plain in (("ring", False), ("plain", True)):
+        files[name] = str(tmp_path / f"{name}.npz")
+        with pytest.raises(RuntimeError, match="fault injection"):
+            count_reads_device(reads, cfg, stream_checkpoint=files[name],
+                               stream_checkpoint_every=2, abort_after_batch=5,
+                               _plain_upload=plain, **kw)
+    with np.load(files["ring"]) as a, np.load(files["plain"]) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert int(a["next_start"]) == 4 * 700
+        for key in a.files:
+            assert np.array_equal(a[key], b[key]), key
+    resumed = count_reads_device(reads, cfg, resume_stream_from=files["ring"],
+                                 **kw)
+    assert _tables_equal(resumed, full)
+
+
+def test_sharded_stream_ring_equals_cpu_mesh(cuda_device, monkeypatch):
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+
+    monkeypatch.setattr(pipeline, "DIST_STREAM_WINDOWS", 0)
+    reads = _noisy_reads()
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=1000)
+    m = pipeline.Metrics()
+    got = pipeline._run_distributed_step(reads, cfg, mesh.build_mesh(4),
+                                         table_capacity=1 << 18, metrics=m)
+    want = pipeline._run_distributed_step(
+        reads, cfg, mesh.build_mesh(4, devices=["cpu"]),
+        table_capacity=1 << 18)
+    assert m.counters["h2d_bytes_reads"] == 8 * 1000 * 100
+    for a, b in zip(got, want):
+        assert a.limbs.is_cuda
+        assert torch.equal(a.limbs.cpu(), b.limbs)
+        assert torch.equal(a.counts.cpu(), b.counts)
+
+
+def test_trace_holds_cuda_kernels_and_stages(cuda_device, tmp_path):
+    from genome_assembler_tpu_torch.utils import metrics
+
+    reads = _noisy_reads()
+    cfg = ref.AssemblyConfig(k=31, min_count=3, read_len=100, batch_reads=700)
+    assemble_torch(reads, cfg, device=cuda_device, table_capacity=1 << 18)
+    m = metrics.Metrics()
+    with metrics.profiler_trace(str(tmp_path)):
+        assemble_torch(reads, cfg, device=cuda_device, metrics=m,
+                       table_capacity=1 << 18)
+    trace = metrics.read_trace(str(tmp_path))
+    assert {"count", "filter", "compress", "spell", "simplify",
+            "traverse"} <= set(trace.stages)
+    names = trace.kernel_names()
+    assert any("extract_canonical" in n for n in names), sorted(names)[:20]
+    assert any("memcpy" in n.lower() for n in names)
+    busy, wall = trace.busy_share("count")
+    assert 0 < busy <= wall
+    derived = m.report()["derived"]
+    assert derived["count_bytes_per_s"] > 0
+    assert 0 <= derived["hbm_roofline_frac"] < 1  # rounded to 3 places

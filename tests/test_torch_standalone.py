@@ -19,7 +19,8 @@ FOREIGN = ("jax", "genome_assembler_tpu")
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-) + ["chip_smoke.py", os.path.join("tools", "probe_kmer_extract.py")]
+) + ["chip_smoke.py", os.path.join("tools", "probe_kmer_extract.py"),
+     os.path.join("tools", "probe_upload.py")]
 
 
 def is_foreign(name: str) -> bool:
@@ -62,6 +63,11 @@ def test_every_port_module_is_walked():
                  "genome_assembler_tpu_torch/host/simplify_arrays.py",
                  "genome_assembler_tpu_torch/host/traverse.py",
                  "genome_assembler_tpu_torch/models/oracle.py",
+                 "genome_assembler_tpu_torch/models/acceptance.py",
+                 "genome_assembler_tpu_torch/verify_reference.py",
+                 "genome_assembler_tpu_torch/utils/upload.py",
+                 "genome_assembler_tpu_torch/utils/metrics.py",
+                 "tools/probe_upload.py",
                  "genome_assembler_tpu_torch/models/pipeline.py",
                  "genome_assembler_tpu_torch/ops/kmer_ref.py",
                  "genome_assembler_tpu_torch/parallel/compress.py",
@@ -148,6 +154,33 @@ def test_cli_run_loads_nothing_foreign(tmp_path):
         "rc = cli.main(['assemble', '--device', 'cpu', '--reads', 'reads.txt',\n"
         "               '-k', '21', '--out', 'd.fa'])\n"
         "assert rc == 0, rc\n"
+    ) + CHECK_MODULES
+    proc = _run(code, str(tmp_path))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_new_commands_load_nothing_foreign(tmp_path):
+    """simulate, assemble with every output and a trace, the oracle
+    backend, stats, accept and verify-reference in one process."""
+    code = (
+        "import os\n"
+        "from genome_assembler_tpu_torch import cli\n"
+        "run = lambda *a: cli.main(list(a))\n"
+        "assert run('simulate', '--genome-len', '2000', '--coverage', '25',\n"
+        "           '--out', 'r.txt', '--genome-out', 'g.fa') == 0\n"
+        "assert run('-v', 'assemble', '--reads', 'r.txt', '-k', '21',\n"
+        "           '--device', 'cpu', '--out', 'c.fa', '--gfa', 'c.gfa',\n"
+        "           '--stats', '--metrics-out', 'm.json', '--trace-dir',\n"
+        "           'trace') == 0\n"
+        "assert os.path.exists('trace/trace.json')\n"
+        "assert run('assemble', '--reads', 'r.txt', '-k', '21', '--backend',\n"
+        "           'oracle', '--out', 'o.fa') == 0\n"
+        "assert cli.read_sequences('o.fa') == cli.read_sequences('c.fa')\n"
+        "assert run('stats', 'c.fa') == 0\n"
+        "assert run('accept', '0', '--scale', '0.01', '--device', 'cpu') == 0\n"
+        "os.mkdir('ref')\n"
+        "assert run('verify-reference', 'ref') == 0\n"
     ) + CHECK_MODULES
     proc = _run(code, str(tmp_path))
     assert proc.returncode == 0, proc.stderr

@@ -130,6 +130,44 @@ def test_single_device_checkpoints_cross_packages(reads, jax_single, tmp_path):
     )
 
 
+@pytest.mark.parametrize("stop", [1, 2, 6])
+def test_single_device_checkpoint_at_each_cursor(reads, jax_single, tmp_path,
+                                                 stop):
+    """A snapshot after batch ``stop`` of 7, taken while the upload ring
+    is already past it (two batches ahead, or at the stream's end): the
+    file equals the reference's at the same cursor, and both packages
+    resume it to the uninterrupted table."""
+    jax_full, _ = jax_single
+    ck, jax_ck = str(tmp_path / "mid.npz"), str(tmp_path / "jax_mid.npz")
+    with pytest.raises(RuntimeError, match="fault injection"):
+        pipeline.count_reads_device(
+            reads, CFG, device="cpu", table_capacity=CAP,
+            stream_checkpoint=ck, stream_checkpoint_every=stop,
+            abort_after_batch=stop,
+        )
+    _jax_abort(
+        jax_pipeline.count_reads_device, stop, reads=reads, cfg=CFG,
+        table_capacity=CAP, stream_checkpoint=jax_ck,
+        stream_checkpoint_every=stop,
+    )
+    _assert_files_equal(ck, jax_ck)
+    with np.load(ck) as z:
+        assert int(z["next_start"]) == stop * CFG.batch_reads
+    _assert_tables_equal(
+        pipeline.count_reads_device(reads, CFG, device="cpu",
+                                    table_capacity=CAP,
+                                    resume_stream_from=ck),
+        jax_full,
+    )
+    _assert_tables_equal(
+        pipeline.count_reads_device(reads, CFG, device="cpu",
+                                    table_capacity=CAP,
+                                    resume_stream_from=jax_ck),
+        jax_pipeline.count_reads_device(reads, CFG, table_capacity=CAP,
+                                        resume_stream_from=ck),
+    )
+
+
 def test_single_device_resume_refuses_mismatch(reads, jax_single):
     _, ck = jax_single
     with pytest.raises(ValueError, match="mismatch"):
@@ -208,6 +246,32 @@ def test_sharded_abort_and_resume(reads, jax_sharded, monkeypatch, tmp_path, d):
     assert pipeline.table_to_host_counts(full, CFG.k) == count_canonical_fast(
         reads, CFG.k
     )
+
+
+def test_sharded_checkpoint_at_the_last_cursor(reads, monkeypatch, tmp_path):
+    """The snapshot before the last batch (the ring has nothing left to
+    prefetch) and after the first (it is one batch ahead), on 2 shards:
+    equal to the reference's files, resumed by the port."""
+    monkeypatch.setattr(pp, "DIST_STREAM_WINDOWS", 0)
+    monkeypatch.setattr(jax_pp, "DIST_STREAM_WINDOWS", 0)
+    full = pp.distributed_count_table(reads, CFG, cpu_mesh(2),
+                                      table_capacity=CAP)
+    batches = -(-reads.shape[0] // CFG.batch_reads)
+    for stop in (1, batches - 1):
+        ck, jax_ck = str(tmp_path / "mid.npz"), str(tmp_path / "jax_mid.npz")
+        _sharded_abort(reads, 2, ck, after=stop, every=stop)
+        _jax_abort(
+            jax_pp.distributed_count_table, stop, reads=reads, cfg=CFG,
+            mesh=jax_mesh(2), table_capacity=CAP, stream_checkpoint=jax_ck,
+            stream_checkpoint_every=stop,
+        )
+        _assert_files_equal(ck, jax_ck)
+        _assert_tables_equal(
+            pp.distributed_count_table(reads, CFG, cpu_mesh(2),
+                                       table_capacity=CAP,
+                                       resume_stream_from=jax_ck),
+            full,
+        )
 
 
 def test_sharded_checkpoints_cross_packages(reads, jax_sharded, monkeypatch,
