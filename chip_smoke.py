@@ -64,11 +64,27 @@ result line:
  12. the command line, as subprocesses at CFG-1's size: ``ga-torch
      simulate`` -> file -> ``ga-torch assemble --gfa --stats --metrics-out
      --trace-dir`` -> ``ga-torch stats``; exit codes, the trace's CUDA
-     kernels and stage names, and ``derived.hbm_roofline_frac`` < 1.
+     kernels and stage names, and ``derived.hbm_roofline_frac`` < 1;
+ 13. the multi-process mesh: CFG-4 at full size (its 12,000,000 reads
+     written once to a lines file that every rank loads) through
+     ``ga-torch assemble --backend dist --devices 4 --hosts n`` started by
+     ``parallel/launch.py::spawn`` as ``n = min(4, visible cards)`` ranks,
+     NCCL, a card a rank, with ``--sharded-graph`` and a ``"hash_shards"``
+     checkpoint and then gathered. Every rank must exit 0 inside the time
+     limit and write the same contigs file; the contig must equal the
+     genome and phase 8's; the checkpoint the ranks wrote must equal
+     phase 8's array for array; ``hosts`` in every rank's metrics must be
+     ``n``; the ranks' kernel launches (from their metrics files) are
+     summed. Ranks, cards, rank 0's wall and stage seconds, query rounds,
+     seconds a doubling round and peak GiB a card are printed beside
+     phases 7-8's single-process numbers. Where only one card is visible
+     NCCL cannot hold two ranks on it: the phase then runs one rank with
+     four local shards through the same ``torch.distributed`` calls and
+     prints ``"ranks": 1, "cross_process": false``.
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
-phase's ring run and the acceptance runners, and
+phase's ring run, the acceptance runners and the multi-process ranks, and
 given for each in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
@@ -516,58 +532,73 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
         f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the merge "
         f"({100 * route_ms / step_ms:.1f}%)")
     del packed, tables
-    return launches, err, (rs.codes, cfg, capacity, contigs)
+    single = {"wall_s": round(wall, 3), "stages_s": stages, "peak_gib": peak}
+    return launches, err, (rs.codes, cfg, capacity, contigs), single
+
+
+def doubling_numbers(counters) -> dict:
+    """Query rounds of a sharded-graph run and the seconds of one round of
+    its doubling loops, from the run's counters."""
+    rounds = int(counters["compress_doubling_rounds"])
+    return {
+        "query_rounds": int(counters["a2a_compress_query_rounds"]),
+        "doubling_rounds": rounds,
+        "s_a_doubling_round": round(
+            counters["compress_doubling_s"] / max(rounds, 1), 5),
+    }
 
 
 def phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, reads, cfg,
-                       capacity, gathered):
+                       capacity, gathered, keep):
     """CFG-4 through the sharded graph on 4 shards with a "hash_shards"
-    checkpoint, then resumed from it with zeroed reads."""
+    checkpoint (left in ``keep`` for phase 13), then resumed from it with
+    zeroed reads."""
     import numpy as np
 
     mesh = mesh_mod.build_mesh(4)
-    with tempfile.TemporaryDirectory() as tmp:
-        ck = os.path.join(tmp, "cfg4_shards.npz")
-        m = dist.Metrics()
-        kmer.extract_canonical_flat.launches = 0
-        reset_peaks(torch, mesh)
-        t0 = time.perf_counter()
-        contigs = dist.assemble_distributed_sharded(
-            reads, cfg, mesh, metrics=m, table_capacity=capacity,
-            checkpoint=ck,
-        )
-        wall = time.perf_counter() - t0
-        launches = kmer.extract_canonical_flat.launches
-        peak = peaks_gib(torch, mesh)
-        check(len(contigs) == 1,
-              f"CFG-4 sharded graph: {len(contigs)} contigs, expected 1")
-        check(ref.contigs_equal(contigs, gathered),
-              "CFG-4 sharded graph contig != the gathered path's (genome)")
-        check(launches > 0, "CFG-4 sharded graph never launched the kernel")
-        stages = {name: round(s, 4) for name, s in m.stages.items()}
-        log(f"CFG-4 sharded graph on {mesh}: {wall:.3f} s wall incl. the "
-            f"checkpoint write, 1 contig == genome == gathered path's, kernel "
-            f"launches {launches}, peak device memory {peak} GiB per card")
-        log("CFG-4 sharded graph stages (s): " + json.dumps(stages))
-        log("CFG-4 sharded graph counters: " + json.dumps(
-            {n: int(v) for n, v in m.counters.items()}))
-        log(f"CFG-4 sharded graph query rounds run: "
-            f"{int(m.counters['a2a_compress_query_rounds'])} (cap "
-            f"{int(m.counters['a2a_compress_query_rounds_max'])} a pass)")
+    ck = os.path.join(keep, "cfg4_shards.npz")
+    m = dist.Metrics()
+    kmer.extract_canonical_flat.launches = 0
+    reset_peaks(torch, mesh)
+    t0 = time.perf_counter()
+    contigs = dist.assemble_distributed_sharded(
+        reads, cfg, mesh, metrics=m, table_capacity=capacity,
+        checkpoint=ck,
+    )
+    wall = time.perf_counter() - t0
+    launches = kmer.extract_canonical_flat.launches
+    peak = peaks_gib(torch, mesh)
+    check(len(contigs) == 1,
+          f"CFG-4 sharded graph: {len(contigs)} contigs, expected 1")
+    check(ref.contigs_equal(contigs, gathered),
+          "CFG-4 sharded graph contig != the gathered path's (genome)")
+    check(launches > 0, "CFG-4 sharded graph never launched the kernel")
+    stages = {name: round(s, 4) for name, s in m.stages.items()}
+    log(f"CFG-4 sharded graph on {mesh}: {wall:.3f} s wall incl. the "
+        f"checkpoint write, 1 contig == genome == gathered path's, kernel "
+        f"launches {launches}, peak device memory {peak} GiB per card")
+    log("CFG-4 sharded graph stages (s): " + json.dumps(stages))
+    log("CFG-4 sharded graph counters: " + json.dumps(
+        {n: int(v) for n, v in m.counters.items()}))
+    log(f"CFG-4 sharded graph query rounds run: "
+        f"{int(m.counters['a2a_compress_query_rounds'])} (cap "
+        f"{int(m.counters['a2a_compress_query_rounds_max'])} a pass)")
+    single = {"wall_s": round(wall, 3), "stages_s": stages,
+              "peak_gib": peak, **doubling_numbers(m.counters)}
 
-        m = dist.Metrics()
-        t0 = time.perf_counter()
-        resumed = dist.assemble_distributed_sharded(
-            np.zeros_like(reads), cfg, mesh, metrics=m,
-            table_capacity=capacity, resume_from=ck,
-        )
-        check(resumed == contigs,
-              "CFG-4 sharded graph resumed from its checkpoint != first run")
-        stages = {name: round(s, 4) for name, s in m.stages.items()}
-        log(f"CFG-4 sharded graph resumed from its hash_shards checkpoint "
-            f"with zeroed reads: same contig, {time.perf_counter() - t0:.3f} "
-            f"s; stages (s): {json.dumps(stages)}")
-    return launches
+    m = dist.Metrics()
+    t0 = time.perf_counter()
+    resumed = dist.assemble_distributed_sharded(
+        np.zeros_like(reads), cfg, mesh, metrics=m,
+        table_capacity=capacity, resume_from=ck,
+    )
+    check(resumed == contigs,
+          "CFG-4 sharded graph resumed from its checkpoint != first run")
+    stages = {name: round(s, 4) for name, s in m.stages.items()}
+    log(f"CFG-4 sharded graph resumed from its hash_shards checkpoint "
+        f"with zeroed reads: same contig, {time.perf_counter() - t0:.3f} "
+        f"s; stages (s): {json.dumps(stages)}")
+    return launches, ck, single
 
 
 def expect_stop(fn) -> None:
@@ -773,6 +804,112 @@ def phase_cli(metrics_mod):
             f"{span:.4f} s; derived: {json.dumps(report['derived'])}")
 
 
+RANKS_LIMIT_S = 420.0  # a rank that hangs ends phase 13 after this
+
+
+def phase_multiprocess(torch, ref, launch, reads, capacity, contigs, ck8,
+                       single_gathered, single_sharded, tmp):
+    """Phase 13: CFG-4 at full size as one NCCL rank a card through the
+    command line, against phases 7-8 of this run."""
+    import numpy as np
+
+    from genome_assembler_tpu_torch.utils import io_native
+
+    cards = torch.cuda.device_count()
+    ranks = min(4, cards)
+    cross = ranks > 1
+    t0 = time.perf_counter()
+    reads_file = os.path.join(tmp, "cfg4_reads.txt")
+    launch.write_reads_lines(reads_file, reads)
+    check(io_native.available(), "the native read loader did not build")
+    log(f"multi-process CFG-4: {reads.shape[0]} reads written to a lines "
+        f"file of {os.path.getsize(reads_file)} bytes in "
+        f"{time.perf_counter() - t0:.1f} s; {ranks} rank(s) on {cards} "
+        f"visible card(s)")
+    ck13 = os.path.join(tmp, "cfg4_ranks_shards.npz")
+    runs = {}
+    launches = 0
+    for name, extra in (
+        ("sharded_graph", ["--sharded-graph", "--checkpoint", ck13]),
+        ("gathered", []),
+    ):
+        out = os.path.join(tmp, f"ranks_{name}.fa")
+        mfile = os.path.join(tmp, f"ranks_{name}.json")
+        res = launch.spawn(
+            ranks,
+            ["assemble", "--reads", reads_file, "-k", "31", "--backend",
+             "dist", "--devices", "4", "--hosts", str(ranks),
+             "--table-capacity", str(capacity), "--out", out,
+             "--metrics-out", mfile, *extra],
+            device="cuda", timeout_s=RANKS_LIMIT_S,
+        )
+        check(res.ok, f"multi-process CFG-4, {name}: " + res.describe())
+        paths = [out if r == 0 else f"{out}.rank{r}" for r in range(ranks)]
+        texts = []
+        for path in paths:
+            with open(path) as fh:
+                texts.append(fh.read())
+        check(all(t == texts[0] for t in texts),
+              f"multi-process CFG-4, {name}: the ranks' --out files differ")
+        got = ["".join(texts[0].split("\n")[1:])]
+        check(texts[0].count(">") == 1,
+              f"multi-process CFG-4, {name}: {texts[0].count('>')} contigs")
+        check(ref.contigs_equal(got, contigs),
+              f"multi-process CFG-4, {name}: contig != genome (phase 8's)")
+        reports = []
+        for r in range(ranks):
+            with open(mfile if r == 0 else f"{mfile}.rank{r}") as fh:
+                reports.append(json.load(fh))
+        for r, rep in enumerate(reports):
+            check(rep["hosts"] == ranks and rep["counters"]["hosts"] == ranks,
+                  f"{name}: rank {r} reports hosts {rep['hosts']}")
+            check(rep["device"] == f"cuda:{r}" and rep["rank"] == r,
+                  f"{name}: rank {r} ran on {rep['device']}")
+            check(rep["kernel_launches"] > 0,
+                  f"{name}: rank {r} never launched the kernel")
+        launches += sum(rep["kernel_launches"] for rep in reports)
+        r0 = reports[0]
+        runs[name] = {
+            "spawn_s": round(res.seconds, 3),
+            "rank0_wall_s": round(r0["wall_s"], 3),
+            "stages_s": r0["stages_s"],
+            "pipeline_s": round(sum(r0["stages_s"].values()), 4),
+            "peak_gib": [round(rep["peak_device_bytes"] / 2**30, 2)
+                         for rep in reports],
+            "h2d_bytes_reads_rank0": int(r0["counters"]["h2d_bytes_reads"]),
+            "kernel_launches": [rep["kernel_launches"] for rep in reports],
+        }
+        if name == "sharded_graph":
+            runs[name].update(doubling_numbers(r0["counters"]))
+    t0 = time.perf_counter()
+    with np.load(ck8) as a, np.load(ck13) as b:
+        check(sorted(a.files) == sorted(b.files),
+              f"checkpoint arrays: {sorted(a.files)} vs {sorted(b.files)}")
+        for key in a.files:
+            check(a[key].dtype == b[key].dtype
+                  and np.array_equal(a[key], b[key]),
+                  f"the ranks' hash_shards checkpoint differs from the "
+                  f"single-process one in {key!r}")
+        n_arrays = len(a.files)
+    log(f"multi-process CFG-4: the ranks' hash_shards checkpoint equals the "
+        f"single-process mesh's in all {n_arrays} arrays (compared in "
+        f"{time.perf_counter() - t0:.1f} s); every rank wrote the same "
+        f"contig, equal to the genome and to the single-process paths'")
+    log("multi-process CFG-4: " + json.dumps({
+        "ranks": ranks, "cards": cards, "cross_process": cross,
+        "backend": "nccl", "shards": 4,
+        # a rank is a new process: its stages hold the first-use costs
+        "ranks_are": "cold processes", **runs,
+        "single_process_sharded_graph": single_sharded,
+        "single_process_gathered": single_gathered,
+    }))
+    if not cross:
+        log("multi-process CFG-4: one card is visible, so this was one rank "
+            "with four local shards through the same torch.distributed "
+            "calls, not a run across processes")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -782,6 +919,7 @@ def main() -> int:
     import genome_assembler_tpu_torch.reference as ref
     from genome_assembler_tpu_torch.models import acceptance, pipeline
     from genome_assembler_tpu_torch.ops import _build, kmer_torch as kmer
+    from genome_assembler_tpu_torch.parallel import launch
     from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
     from genome_assembler_tpu_torch.parallel import pipeline as dist
     from genome_assembler_tpu_torch.utils import metrics as metrics_mod
@@ -800,12 +938,12 @@ def main() -> int:
     by_path["cfg2"], cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline,
                                                        kmer, dev)
     phase_mesh_cfg1(torch, ref, dist, mesh_mod)
-    by_path["cfg4_gathered"], cfg4_err, cfg4 = phase_cfg4(
+    by_path["cfg4_gathered"], cfg4_err, cfg4, single_gathered = phase_cfg4(
         torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev)
     err = max(err, cfg4_err)
-    by_path["cfg4_sharded_graph"] = phase_cfg4_sharded(torch, ref, dist,
-                                                       mesh_mod, kmer, *cfg4)
-    del cfg4
+    keep = tempfile.TemporaryDirectory()  # phase 8's checkpoint, phase 13's files
+    by_path["cfg4_sharded_graph"], ck8, single_sharded = phase_cfg4_sharded(
+        torch, ref, dist, mesh_mod, kmer, *cfg4, keep.name)
     phase_resume(torch, ref, pipeline, dist, mesh_mod, cfg2_reads, cfg2_cap,
                  dev)
     by_path["cfg2_upload_ring"] = phase_upload(
@@ -813,6 +951,13 @@ def main() -> int:
     del cfg2_reads
     by_path["accept_0_1_2_5"] = phase_accept(torch, acceptance, kmer)
     phase_cli(metrics_mod)
+    cfg4_reads, _, cfg4_cap, cfg4_contigs = cfg4
+    torch.cuda.empty_cache()  # the ranks share card 0 with this process
+    by_path["cfg4_multiprocess"] = phase_multiprocess(
+        torch, ref, launch, cfg4_reads, cfg4_cap, cfg4_contigs, ck8,
+        single_gathered, single_sharded, keep.name)
+    keep.cleanup()
+    del cfg4, cfg4_reads
     foreign = sorted(
         name for name in sys.modules
         if name == "jax" or name.startswith("jax.")

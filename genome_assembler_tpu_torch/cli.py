@@ -7,9 +7,12 @@
     ga-torch assemble --reads reads.txt --backend dist --devices 4   # 4 shards
     ga-torch assemble --reads reads.txt --backend dist --sharded-graph
     ga-torch assemble --reads reads.txt --gfa g.gfa --stats --trace-dir trace/
+    torchrun --nproc-per-node 4 -m genome_assembler_tpu_torch.cli assemble \
+        --reads reads.txt --backend dist --devices 4 --hosts 4   # a rank a card
     ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
     ga-torch stats contigs.fa
     ga-torch accept 0 1 2 --device cuda
+    ga-torch accept 4 --multiprocess --enforce-weak-scaling
     ga-torch verify-reference /path/to/reference
     python -m genome_assembler_tpu_torch.cli assemble --device cuda ...
 
@@ -18,7 +21,12 @@
 count over ``--devices`` shards placed round-robin on the visible GPUs
 (``--device cuda``), on one named device (``cuda:N``) or on the CPU
 (``cpu``); ``--sharded-graph`` keeps the graph stages sharded as well
-instead of gathering the table onto one device. ``--trace-dir`` wraps the
+instead of gathering the table onto one device. Started as several
+processes with torch's launch variables (``torchrun``, or
+``parallel/launch.py::spawn``), ``--backend dist`` runs one rank a process
+over a ``torch.distributed`` group (NCCL on cards, gloo with ``--device
+cpu``): every rank runs the identical command on the same reads file and
+owns ``--devices / --hosts`` shards. ``--trace-dir`` wraps the
 run in ``torch.profiler`` and leaves a Chrome trace there, every stage a
 named span. Read parsing, FASTA output and
 the read simulator are the port's own copies of the reference package's
@@ -195,11 +203,21 @@ def _batch(args) -> dict:
 
 def _dist_mesh(args, device):
     """The mesh for --backend dist: --devices shards over every visible
-    GPU (``--device cuda``) or over the one named device."""
-    from .parallel.mesh import build_mesh
+    GPU (``--device cuda``) or over the one named device. Under torch's
+    launch variables the process group is made first (NCCL, or gloo for
+    ``--device cpu``), ``--hosts`` defaults to its size, and ``--device
+    cuda`` is the rank's own card."""
+    from .parallel.mesh import build_mesh, init_distributed
 
+    init_distributed("gloo" if device.type == "cpu" else "nccl")
     devices = None if args.device == "cuda" else [device]
-    return build_mesh(args.devices, devices=devices)
+    return build_mesh(args.devices, devices=devices, hosts=args.hosts)
+
+
+def _rank_path(path: str | None, rank: int) -> str | None:
+    """An output path of rank ``rank`` of a multi-process run: rank 0
+    keeps the path, rank r > 0 appends ``.rank<r>``."""
+    return path if not path or rank == 0 else f"{path}.rank{rank}"
 
 
 def _graph_outputs(args, graph) -> tuple[list[str], list[float]]:
@@ -229,12 +247,11 @@ def _write_contigs(args, contigs, coverages, n_reads, dt, where) -> None:
         from .host.stats import stats_json
 
         print(stats_json(contigs), file=sys.stderr)
-    out = open(args.out, "w") if args.out else sys.stdout
-    try:
-        write_fasta(contigs, out, coverages=coverages)
-    finally:
-        if args.out:
-            out.close()
+    if args.out:
+        with open(args.out, "w") as out:
+            write_fasta(contigs, out, coverages=coverages)
+    elif getattr(args, "rank", 0) == 0:
+        write_fasta(contigs, sys.stdout, coverages=coverages)
     total = sum(len(c) for c in contigs)
     print(
         f"assembled {n_reads} reads -> {len(contigs)} contig(s), "
@@ -280,6 +297,25 @@ def cmd_assemble(args) -> int:
         raise ValueError("--minimizer-len needs --backend dist")
     if args.sharded_graph and mesh is None:
         raise ValueError("--sharded-graph needs --backend dist")
+    if args.hosts is not None and mesh is None:
+        raise ValueError("--hosts needs --backend dist")
+    if mesh is not None and mesh.distributed:
+        # every rank runs the whole command; rank 0 keeps the paths as
+        # given, the others write beside them (see the flags' help)
+        args.rank = mesh.rank
+        device = mesh.devices[0]
+        for name in ("out", "metrics_out", "trace_dir"):
+            setattr(args, name, _rank_path(getattr(args, name), mesh.rank))
+        if mesh.rank:
+            args.gfa = None
+        if args.reads:
+            # one rank builds the native loader, the others find it built
+            from .parallel.mesh import barrier
+            from .utils import io_native
+
+            if mesh.rank == 0:
+                io_native.available()
+            barrier(mesh)
     t0 = time.perf_counter()
     reads = _load_reads(args.reads) if args.reads else _simulated_reads(args)[0]
     cfg = AssemblyConfig(
@@ -321,14 +357,31 @@ def cmd_assemble(args) -> int:
         # derived), and beside it where the run was placed
         import json
 
-        report = dict(metrics.report(), device=str(device))
+        from .ops.kmer_torch import extract_canonical_flat
+
+        report = dict(metrics.report(), device=str(device), wall_s=dt,
+                      kernel_launches=extract_canonical_flat.launches)
+        if device.type == "cuda":
+            import torch
+
+            report["peak_device_bytes"] = torch.cuda.max_memory_allocated(
+                device)
         if mesh is not None:
             report["shards"] = mesh.size
             report["shard_devices"] = [str(d) for d in mesh.devices]
+            report["hosts"] = mesh.hosts
+            report["rank"] = mesh.rank
+            report["local_shards"] = list(mesh.local_shards)
         with open(args.metrics_out, "w") as fh:
             json.dump(report, fh, indent=2)
             fh.write("\n")
     _write_contigs(args, contigs, coverages, reads.shape[0], dt, where)
+    if mesh is not None and mesh.distributed:
+        # only a run that reached its end leaves the group: a failed rank's
+        # peers may be inside a collective, and the launcher ends them
+        from .parallel.mesh import shutdown_distributed
+
+        shutdown_distributed()
     return 0
 
 
@@ -371,6 +424,9 @@ def cmd_accept(args) -> int:
         ids, on_result=emit, scale=args.scale, warm=args.warm,
         force_oracle_check=args.force_oracle_check, device=args.device,
         devices=args.devices,
+        enforce_weak_scaling=args.enforce_weak_scaling,
+        weak_scaling_min=args.weak_scaling_min,
+        multiprocess=args.multiprocess,
     )
     return 0 if all(r.passed for r in results) else 1
 
@@ -405,7 +461,10 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--emit", choices=["unitigs", "euler"], default="unitigs",
                     help="unitigs stop at junctions (default); euler spells "
                     "Eulerian walks")
-    pa.add_argument("--out", default=None, help="contigs FASTA (default stdout)")
+    pa.add_argument("--out", default=None,
+                    help="contigs FASTA (default stdout); in a multi-process "
+                    "run every rank writes the same contigs, rank r > 0 to "
+                    "OUT.rank<r> (only rank 0 writes to stdout)")
     pa.add_argument("--table-capacity", type=int, default=None,
                     help="unique-k-mer capacity of the streaming count table "
                     "(overflow is a flagged error, never silent)")
@@ -413,7 +472,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reads per streamed batch (dist: per global batch, "
                     "split over the shards)")
     pa.add_argument("--checkpoint", default=None,
-                    help="save the counted k-mer table (.npz) here")
+                    help="save the counted k-mer table (.npz) here (in a "
+                    "multi-process run rank 0 writes the one file of all "
+                    "shards)")
     pa.add_argument("--resume-from", default=None,
                     help="restart from a checkpoint written by ga-torch or "
                     "ga-tpu: a stage-boundary one skips counting, a "
@@ -423,15 +484,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "counter's table and batch cursor every N batches")
     pa.add_argument("--metrics-out", default=None,
                     help="write the per-stage metrics JSON here (stages_s, "
-                    "counters, derived rates; torch and dist backends)")
+                    "counters, derived rates, the extraction kernel's "
+                    "launches; torch and dist backends; in a multi-process "
+                    "run rank r > 0 writes PATH.rank<r>)")
     pa.add_argument("--stats", action="store_true",
                     help="print contig summary stats (N50 etc.) to stderr")
     pa.add_argument("--gfa", default=None,
                     help="write the simplified unitig graph as GFA 1.0 "
-                    "(torch and dist backends)")
+                    "(torch and dist backends; in a multi-process run rank "
+                    "0 writes it)")
     pa.add_argument("--trace-dir", default=None,
                     help="write a torch.profiler Chrome trace of the run "
-                    "here (torch and dist backends)")
+                    "here (torch and dist backends; in a multi-process run "
+                    "rank r > 0 writes DIR.rank<r>)")
     pa.add_argument("--device", default="cuda",
                     help="cuda (default), cuda:N or cpu; never falls back")
     pa.add_argument("--backend", choices=["torch", "dist", "oracle"],
@@ -441,7 +506,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "NumPy/dict oracle on the host (no device)")
     pa.add_argument("--devices", type=int, default=None,
                     help="shard count for --backend dist (default: one per "
-                    "visible GPU); a multiple of the device count")
+                    "visible GPU); a multiple of the device count; in a "
+                    "multi-process run the global count over all ranks")
+    pa.add_argument("--hosts", type=int, default=None,
+                    help="build a 2-level (host, chip) mesh with this many "
+                    "hosts (--backend dist; a multi-process run, started "
+                    "by torchrun or parallel/launch.py, has one host a "
+                    "process and this defaults to their number)")
     pa.add_argument("--minimizer-len", type=int, default=None,
                     help="--backend dist: route minimizer super-k-mer "
                     "records instead of per-window keys (try 15 for k=31)")
@@ -491,6 +562,17 @@ def build_parser() -> argparse.ArgumentParser:
     pc.add_argument("--devices", type=int, default=None,
                     help="shard count of configs 4 and 6 (default: one per "
                     "visible GPU)")
+    pc.add_argument("--enforce-weak-scaling", action="store_true",
+                    help="config 4: fail unless the weak-scaling efficiency "
+                    "at the largest mesh reaches --weak-scaling-min (an "
+                    "untimed pass a mesh size comes first)")
+    pc.add_argument("--weak-scaling-min", type=float, default=0.8,
+                    help="the efficiency bar of --enforce-weak-scaling "
+                    "(default 0.8)")
+    pc.add_argument("--multiprocess", action="store_true",
+                    help="configs 4 and 6: run every sharded point as one "
+                    "rank a shard (a process and, on cards, a card each) "
+                    "through parallel/launch.py")
     pc.set_defaults(fn=cmd_accept)
 
     pv = sub.add_parser(

@@ -25,23 +25,32 @@ coverage for tests; ``warm`` makes an untimed first pass;
 bar; ``device`` is where the work runs (``"cuda"`` by default, never a
 silent CPU run) and ``devices`` the shard count of configs 4 and 6
 (default: one shard a visible GPU, one shard on the CPU).
+``multiprocess`` runs every sharded point of configs 4 and 6 as one rank
+a shard, each a process (on cards: a card each, NCCL; on the CPU: gloo),
+started by ``parallel/launch.py::spawn`` on ``models/acceptance_rank.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
+import os
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
+from ..host.dbg import counts_to_dict
 from ..host.traverse import (
     contigs_equal,
     expected_contigs_multi,
     kmer_content_equal,
 )
+from ..parallel.launch import spawn
 from ..parallel.mesh import Mesh, build_mesh
 from ..parallel.pipeline import (
     assemble_distributed,
@@ -87,6 +96,7 @@ class Options:
     weak_scaling_min: float = 0.8
     device: str = "cuda"
     devices: int | None = None
+    multiprocess: bool = False
 
     @property
     def check_oracle(self) -> bool:
@@ -282,6 +292,84 @@ def _sharded_counts(reads, cfg, mesh, capacity) -> dict[str, int]:
     return table_to_host_counts(table, cfg.k)
 
 
+# a rank that hangs in a collective ends a multi-process point after this
+RANKS_TIMEOUT_S = 1500.0
+
+
+class _Ranks:
+    """The multi-process points of one config: the reads saved once as a
+    ``.npy`` that every rank maps, and ``models/acceptance_rank.py``
+    started as ``d`` ranks (a card each on ``"cuda"``) for a job."""
+
+    def __init__(self, opt: Options, reads, cfg, capacity):
+        dev = torch.device(opt.device)
+        if dev.type == "cuda" and dev.index is not None:
+            raise ValueError(
+                "multiprocess acceptance takes --device cuda or cpu: every "
+                "rank binds a card of its own"
+            )
+        self.opt, self.cfg, self.capacity = opt, cfg, capacity
+        self.tmp = tempfile.TemporaryDirectory()
+        self.reads = os.path.join(self.tmp.name, "reads.npy")
+        np.save(self.reads, np.ascontiguousarray(reads, dtype=np.uint8))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.tmp.cleanup()
+        return False
+
+    def _run(self, job: str, d: int, warm: bool) -> str:
+        if self.opt.device == "cuda":
+            resolve_device("cuda")
+            if d > torch.cuda.device_count():
+                raise ValueError(
+                    f"multiprocess acceptance on {d} shards needs {d} cards, "
+                    f"{torch.cuda.device_count()} visible"
+                )
+        out = os.path.join(self.tmp.name, f"{job}{d}")
+        res = spawn(
+            d,
+            [job, "--reads", self.reads, "-k", str(self.cfg.k), "--devices",
+             str(d), "--capacity", str(self.capacity), "--out", out,
+             *(["--warm"] if warm else [])],
+            device=self.opt.device, timeout_s=RANKS_TIMEOUT_S,
+            entry=("-m", "genome_assembler_tpu_torch.models.acceptance_rank"),
+        )
+        if not res.ok:
+            raise RuntimeError(
+                f"multiprocess acceptance, {job} on {d} rank(s): "
+                + res.describe()
+            )
+        return out
+
+    def counts(self, d: int, warm: bool) -> tuple[dict[str, int], float]:
+        """({k-mer: count} of the gathered table, the timed count's
+        seconds on the slowest rank)."""
+        out = self._run("count", d, warm)
+        with open(out + ".json") as fh:
+            info = json.load(fh)
+        if info["overflow"]:
+            raise RuntimeError("k-mer table overflow in a multiprocess count")
+        with np.load(out + ".table.npz") as z:
+            counts = counts_to_dict(z["words"], z["counts"], self.cfg.k)
+        return counts, info["seconds"]
+
+    def assemble(self, d: int) -> tuple[list[str], list[str], dict, bool]:
+        """(gathered contigs, sharded-graph contigs, the sharded run's
+        metrics, every rank returned the same two lists)."""
+        out = self._run("assemble", d, False)
+        ranks = []
+        for r in range(d):
+            with open(f"{out}.rank{r}.json") as fh:
+                ranks.append(json.load(fh))
+        same = all(x["contigs"] == ranks[0]["contigs"]
+                   and x["sharded"] == ranks[0]["sharded"] for x in ranks)
+        return (ranks[0]["contigs"], ranks[0]["sharded"],
+                ranks[0]["metrics"], same)
+
+
 def accept_cfg4(**options) -> AcceptResult:
     """Sharded counting + both sharded assemblies + weak scaling.
 
@@ -316,33 +404,44 @@ def accept_cfg4(**options) -> AcceptResult:
     counts_ok = True
     warm = opt.warm or opt.enforce_weak_scaling
     want_counts = count_canonical_fast(rs.codes, cfg.k)
-    for d in sizes:
-        mesh = opt.mesh(d)
-        if warm:
-            # untimed pass per mesh size: an enforced efficiency bar must
-            # measure steady-state throughput
-            _sharded_counts(rs.codes, cfg, mesh, capacity)
-        t0 = time.perf_counter()
-        counts = _sharded_counts(rs.codes, cfg, mesh, capacity)
-        dt = time.perf_counter() - t0
-        rates[d] = rs.num_reads / dt
-        counts_ok = counts_ok and counts == want_counts
-    eff = weak_scaling_efficiency(rates)
+    with (_Ranks(opt, rs.codes, cfg, capacity) if opt.multiprocess
+          else contextlib.nullcontext()) as ranks:
+        for d in sizes:
+            if ranks is not None:
+                # the timed count alone, on the slowest rank (the pull into a
+                # host dict is the parent's and is not timed)
+                counts, dt = ranks.counts(d, warm)
+            else:
+                mesh = opt.mesh(d)
+                if warm:
+                    # untimed pass per mesh size: an enforced efficiency bar
+                    # must measure steady-state throughput
+                    _sharded_counts(rs.codes, cfg, mesh, capacity)
+                t0 = time.perf_counter()
+                counts = _sharded_counts(rs.codes, cfg, mesh, capacity)
+                dt = time.perf_counter() - t0
+            rates[d] = rs.num_reads / dt
+            counts_ok = counts_ok and counts == want_counts
+        eff = weak_scaling_efficiency(rates)
 
-    # Full sharded assembly end to end on the largest mesh: the gathered
-    # path and the fully sharded graph path. The genome bar and the
-    # cross-path equality always run, at every scale.
-    m_sharded = Metrics()
-    t_asm = time.perf_counter()
-    contigs = assemble_distributed(
-        rs.codes, cfg, opt.mesh(n_dev), table_capacity=capacity
-    )
-    sharded = assemble_distributed_sharded(
-        rs.codes, cfg, opt.mesh(n_dev), table_capacity=capacity,
-        metrics=m_sharded,
-    )
+        # Full sharded assembly end to end on the largest mesh: the gathered
+        # path and the fully sharded graph path. The genome bar and the
+        # cross-path equality always run, at every scale.
+        t_asm = time.perf_counter()
+        if ranks is not None:
+            contigs, sharded, sharded_report, same = ranks.assemble(n_dev)
+        else:
+            m_sharded = Metrics()
+            contigs = assemble_distributed(
+                rs.codes, cfg, opt.mesh(n_dev), table_capacity=capacity
+            )
+            sharded = assemble_distributed_sharded(
+                rs.codes, cfg, opt.mesh(n_dev), table_capacity=capacity,
+                metrics=m_sharded,
+            )
+            sharded_report, same = m_sharded.report(), True
     asm_wall = time.perf_counter() - t_asm
-    assembly_ok = sharded == contigs and contigs_equal(
+    assembly_ok = same and sharded == contigs and contigs_equal(
         contigs, [decode_seq(genome)]
     )
     if opt.check_oracle:
@@ -371,9 +470,11 @@ def accept_cfg4(**options) -> AcceptResult:
             "reads_per_s": {str(d): round(r, 1) for d, r in rates.items()},
             "weak_scaling_eff": {str(d): round(e, 3) for d, e in eff.items()},
             "weak_scaling_bar": eff_bar,
+            # beside the reference's keys only when it is on
+            **({"multiprocess": True} if opt.multiprocess else {}),
             "unique_kmers": len(counts),
             # wire/link volume of the sharded run
-            "sharded_run_metrics": m_sharded.report(),
+            "sharded_run_metrics": sharded_report,
         },
     )
 
@@ -465,21 +566,28 @@ def accept_cfg6(**options) -> AcceptResult:
     cfg = AssemblyConfig(k=31, read_len=100)
     capacity = snug_capacity(int(1.5 * total) + 4096)
     n_dev = opt.shard_count()
-    mesh = opt.mesh(n_dev)
-    counts = _sharded_counts(rs.codes, cfg, mesh, capacity)
-    counts_ok = counts == count_canonical_fast(rs.codes, cfg.k)
-    m_sharded = Metrics()
-    t0 = time.perf_counter()
-    contigs = assemble_distributed(
-        rs.codes, cfg, mesh, table_capacity=capacity
-    )
-    sharded = assemble_distributed_sharded(
-        rs.codes, cfg, mesh, table_capacity=capacity, metrics=m_sharded
-    )
+    if opt.multiprocess:
+        with _Ranks(opt, rs.codes, cfg, capacity) as ranks:
+            counts, _ = ranks.counts(n_dev, False)
+            t0 = time.perf_counter()
+            contigs, sharded, sharded_report, same = ranks.assemble(n_dev)
+    else:
+        mesh = opt.mesh(n_dev)
+        counts = _sharded_counts(rs.codes, cfg, mesh, capacity)
+        m_sharded = Metrics()
+        t0 = time.perf_counter()
+        contigs = assemble_distributed(
+            rs.codes, cfg, mesh, table_capacity=capacity
+        )
+        sharded = assemble_distributed_sharded(
+            rs.codes, cfg, mesh, table_capacity=capacity, metrics=m_sharded
+        )
+        sharded_report, same = m_sharded.report(), True
     wall = time.perf_counter() - t0
+    counts_ok = counts == count_canonical_fast(rs.codes, cfg.k)
     want = expected_contigs_multi([decode_seq(g) for g in genomes], 31)
     per_chrom = contigs_equal(contigs, want)
-    paths_agree = sharded == contigs
+    paths_agree = same and sharded == contigs
     passed = counts_ok and per_chrom and paths_agree
     if opt.check_oracle:
         oracle = assemble_oracle(rs.codes, cfg)
@@ -502,7 +610,9 @@ def accept_cfg6(**options) -> AcceptResult:
             "paths_agree": paths_agree,
             "contigs": len(contigs),
             "assembly_wall_s": round(wall, 1),
-            "sharded_run_metrics": m_sharded.report(),
+            # beside the reference's keys only when it is on
+            **({"multiprocess": True} if opt.multiprocess else {}),
+            "sharded_run_metrics": sharded_report,
         },
     )
 
@@ -525,7 +635,7 @@ def run(
 ) -> list[AcceptResult]:
     """Run the configs in order; ``options`` are ``Options``' fields
     (scale, warm, force_oracle_check, enforce_weak_scaling,
-    weak_scaling_min, device, devices)."""
+    weak_scaling_min, device, devices, multiprocess)."""
     resolve_device(Options(**options).device)  # fails before any work
     results = []
     for cid in config_ids:

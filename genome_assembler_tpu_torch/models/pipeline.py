@@ -60,11 +60,13 @@ UPLOAD_PREFETCH = 2
 
 
 @contextlib.contextmanager
-def timed_stage(m: Metrics, name: str, devices):
+def timed_stage(m: Metrics, name: str, devices, after=None):
     """Wall time of one stage, closed by a synchronise of ``devices`` (one
     device or several; every stream of each, the copy streams too) so
-    queued work is charged to the stage that queued it. The stage is a
-    ``record_function`` span of a profiler trace."""
+    queued work is charged to the stage that queued it. ``after`` runs
+    inside the stage once the devices are idle (a multi-process mesh
+    passes its barrier, so a stage ends with its slowest process). The
+    stage is a ``record_function`` span of a profiler trace."""
     t0 = time.perf_counter()
     with torch.profiler.record_function(name):
         yield
@@ -72,6 +74,8 @@ def timed_stage(m: Metrics, name: str, devices):
             devices = [devices]
         for dev in dict.fromkeys(devices):
             synchronize(dev)
+        if after is not None:
+            after()
     dt = time.perf_counter() - t0
     m.stages[name] = m.stages.get(name, 0.0) + dt
     log.debug("stage %s: %.3fs", name, dt)
@@ -398,11 +402,13 @@ def assemble_from_table(
     emit: str = "unitigs",
     checkpoint: str | None = None,
     return_graph: bool = False,
+    after_stage=None,
 ):
     """The back half shared by ``assemble_torch`` and the sharded
     ``assemble_distributed``: counted table on ``dev`` -> (stage-boundary
     checkpoint) -> coverage filter -> unitigs -> simplified graph ->
-    contigs."""
+    contigs. ``after_stage`` closes every stage (``timed_stage``'s
+    ``after``)."""
     if table.limbs.shape[1] != n_limbs(cfg.k):
         raise ValueError(
             f"the table holds keys of another k ({table.limbs.shape[1]} "
@@ -411,7 +417,7 @@ def assemble_from_table(
     if checkpoint is not None:
         save_table(table, checkpoint, cfg.k)
     min_count = cfg.min_count or auto_min_count(table)
-    with timed_stage(m, "filter", dev):
+    with timed_stage(m, "filter", dev, after_stage):
         # compact first: unique k-mers are genome-sized, the counting
         # capacity is read-stream-sized; every pass below scales with it
         if not bool(table.overflow):
@@ -423,24 +429,24 @@ def assemble_from_table(
             raise RuntimeError(
                 "k-mer table overflow: rerun with a larger table_capacity"
             )
-        with timed_stage(m, "compress", dev):
+        with timed_stage(m, "compress", dev, after_stage):
             dev_unitigs = compress_unitigs_device(table, cfg.k)
-        with timed_stage(m, "spell", dev):
+        with timed_stage(m, "spell", dev, after_stage):
             ua = spell_device_arrays(dev_unitigs, cfg.k)
-        with timed_stage(m, "simplify", dev):
+        with timed_stage(m, "simplify", dev, after_stage):
             graph = simplify_arrays_to_graph(
                 ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
             )
     else:
         # even k: palindromic k-mers rule out device compression; the
         # reference's host-dict graph branch
-        with timed_stage(m, "host_graph", dev):
+        with timed_stage(m, "host_graph", dev, after_stage):
             counts = table_to_host_counts(table, cfg.k)
             graph = simplify_counts(
                 counts, cfg.k, cfg.resolved_tip_len,
                 cfg.resolved_bubble_len, min_count,
             )
-    with timed_stage(m, "traverse", dev):
+    with timed_stage(m, "traverse", dev, after_stage):
         contigs = (
             emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
         )

@@ -24,8 +24,11 @@ about 1/D (``peak_rows_per_device``):
      global position in the (uid, pos) stream, 4 bases a byte; the host
      pulls E/4 bytes plus O(U) per-unitig rows.
 
-The reference's ``shard_map`` becomes a Python loop over the shards and
-its collectives the mesh's (``parallel/mesh.py``); ids are int64 with the
+The reference's ``shard_map`` becomes a Python loop over the process's
+local shards (all D in one process; list position s is global shard
+``mesh.first_shard + s``) and its collectives the mesh's
+(``parallel/mesh.py``), so across processes every host read is of a
+value reduced over all D shards; ids are int64 with the
 reference's ``BIG`` pads and masks. Per-shard outputs equal the
 reference's at the same D bit for bit. The reference takes a sampled
 two-level ranking at most sizes; it is bit-identical to the exact pass,
@@ -35,6 +38,7 @@ which the port runs at every size.
 from __future__ import annotations
 
 import math
+import time
 from collections.abc import Sequence
 from typing import NamedTuple
 
@@ -65,7 +69,7 @@ from ..ops.words_torch import (
 from ..utils.keys import SENTINEL, is_sentinel, limbs_to_words, n_limbs
 from ..utils.keys import snug_capacity
 from .mesh import Mesh, all_gather_replicated, all_to_all, any_reduce
-from .mesh import axis_size, max_reduce
+from .mesh import axis_size, gather_to_host, max_reduce
 
 # +inf of the id lanes: pads queries and sorts last
 BIG = 2**30
@@ -215,7 +219,9 @@ class ShardedUnitigs(NamedTuple):
     last_base: uint8; heads: bool; edge_limbs: [K, n_limbs] sorted edge
     keys. num_unitigs and overflow (the cap bitmask, ``OVERFLOW_CAPS``)
     are host ints; query_rounds counts the query rounds run (doubling,
-    cycle break and numbering).
+    cycle break and numbering), doubling_rounds those of the doubling
+    loops alone and doubling_seconds their wall time (each ends in the
+    loop's one host read, so the device's work is inside).
     """
 
     valid: list[torch.Tensor]
@@ -228,6 +234,8 @@ class ShardedUnitigs(NamedTuple):
     num_unitigs: int
     overflow: int
     query_rounds: int
+    doubling_rounds: int = 0
+    doubling_seconds: float = 0.0
 
 
 class _ShardedCompress:
@@ -248,9 +256,10 @@ class _ShardedCompress:
         self.steps = _round_cap(d, k_cap)
         self.my_gid = [
             s * k_cap + torch.arange(k_cap, device=dev)
-            for s, dev in enumerate(mesh.devices)
+            for s, dev in zip(mesh.local_shards, mesh.devices)
         ]
         self.rounds = 0
+        self.doubling_rounds, self.doubling_seconds = 0, 0.0
 
     def _link(self, edges, valid):
         """Per-shard prev[K] (global ids, -1 none) and the join and pair
@@ -258,7 +267,7 @@ class _ShardedCompress:
         k, d, k_cap = self.k, self.d, self.k_cap
         nl = edges[0].shape[1]
         sends, ovf_join = [], []
-        for s in range(d):
+        for s in range(self.mesh.local_size):
             pre = prefix_node(edges[s], k)
             suf = suffix_node(edges[s], k)
             # (node << 1 | tag): the pre/suf tag rides the spare low bit
@@ -305,7 +314,7 @@ class _ShardedCompress:
         lane order per shard, overflow flag per shard)."""
         d, k_cap, cq = self.d, self.k_cap, self.cap_query
         sends, plans = [], []
-        for s in range(d):
+        for s in range(self.mesh.local_size):
             t = torch.where(valid[s], targets[s], BIG)
             n = t.shape[0]
             dev = t.device
@@ -361,6 +370,7 @@ class _ShardedCompress:
         ovf = [torch.zeros((), dtype=torch.bool, device=p.device)
                for p in prev]
         changed, i = True, 0
+        t0 = time.perf_counter()
         while i < self.steps and changed:
             ans, o = self._query_round(states, [st[:, 0] for st in states],
                                        valid)
@@ -381,6 +391,8 @@ class _ShardedCompress:
                 ovf[s] = ovf[s] | o[s]
             changed = bool(any_reduce(self.mesh, flags))
             i += 1
+        self.doubling_rounds += i
+        self.doubling_seconds += time.perf_counter() - t0
         return [st[:, 0] for st in states], [st[:, 1] for st in states], ovf
 
     def _exact_rank(self, prev, valid):
@@ -409,6 +421,7 @@ class _ShardedCompress:
         """Per-shard filtered tables of c_shard rows (sorted keys at the
         front, sentinel padding) -> :class:`ShardedUnitigs`."""
         self.rounds = 0
+        self.doubling_rounds, self.doubling_seconds = 0, 0.0
         mesh = self.mesh
         edges, covs, valid = [], [], []
         for t in tables:
@@ -425,8 +438,9 @@ class _ShardedCompress:
             mesh, [h.sum().reshape(1) for h in heads]
         )
         uid_states = []
-        for s, (h, ac) in enumerate(zip(heads, all_counts)):
-            head_rank = torch.cumsum(h, 0) - 1 + ac[:s].sum()
+        for g, h, ac in zip(mesh.local_shards, heads, all_counts):
+            # heads of the global shards before this one come first
+            head_rank = torch.cumsum(h, 0) - 1 + ac[:g].sum()
             uid_states.append(
                 torch.stack([torch.where(h, head_rank, -1)] * 2, dim=1)
             )
@@ -450,6 +464,8 @@ class _ShardedCompress:
             num_unitigs=num_unitigs,
             overflow=ovf_bits,
             query_rounds=self.rounds,
+            doubling_rounds=self.doubling_rounds,
+            doubling_seconds=self.doubling_seconds,
         )
 
 
@@ -508,8 +524,9 @@ class _ShardedSpell:
         # head tables: a head's uid was numbered on its own shard, so its
         # words scatter locally; row u_block is the dump slot
         head_bufs, stat_sends, ovf = [], [], []
-        for s in range(d):
-            my_off = offs[s][s]
+        first = mesh.first_shard
+        for s in range(mesh.local_size):
+            my_off = offs[s][first + s]
             h = heads[s]
             nl = edge_limbs[s].shape[1]
             hslot = torch.where(h, uid[s] - my_off, ub).clamp(max=ub)
@@ -535,7 +552,8 @@ class _ShardedSpell:
             u2c, len_u, cov_u, real2 = _segment_stats(
                 ruid, recv[:, 1], recv[:, 2]
             )
-            slot2 = torch.where(real2, u2c - offs[s][s], ub).clamp(max=ub)
+            slot2 = torch.where(real2, u2c - offs[s][first + s],
+                                ub).clamp(max=ub)
             ln = torch.zeros(ub + 1, dtype=torch.int32, device=ruid.device)
             cv = torch.zeros(ub + 1, dtype=torch.int32, device=ruid.device)
             ln[slot2] = len_u.to(torch.int32)
@@ -545,7 +563,7 @@ class _ShardedSpell:
         # global unitig offsets: masked cumsum over the gathered lengths
         lengths_all = all_gather_replicated(mesh, lengths)
         route_sends = []
-        for s in range(d):
+        for s in range(mesh.local_size):
             dev = uid[s].device
             lane = torch.arange(ub, device=dev)
             vm = lane[None, :] < all_counts[s][:, None]
@@ -598,9 +616,11 @@ def spell_sharded_arrays(
     """Sharded spelling -> the host's columnar UnitigArrays.
 
     The host pulls E/4 bytes of packed bases + O(num_unitigs) per-unitig
-    rows. On a flagged overflow it retries with grown caps (u_block x4 up
-    to k_cap, route slack x2 up to D). metrics: ``a2a_bytes_spell`` adds
-    each attempt's send-buffer bytes (:func:`wire_bytes`).
+    rows (across processes every rank pulls all D shards' and ends with
+    the same arrays). On a flagged overflow it retries with grown caps
+    (u_block x4 up to k_cap, route slack x2 up to D). metrics:
+    ``a2a_bytes_spell`` adds each attempt's send-buffer bytes
+    (:func:`wire_bytes`).
     """
     d = axis_size(mesh)
     k_cap = 2 * c_shard
@@ -634,21 +654,19 @@ def spell_sharded_arrays(
         raise AssertionError(
             f"spell head counts {sum(counts)} != num_unitigs {u}"
         )
-    lens = np.concatenate(
-        [lengths[j][: counts[j]].cpu().numpy() for j in range(d)]
-    ).astype(np.int64)
-    cov_sum = np.concatenate(
-        [covs[j][: counts[j]].cpu().numpy() for j in range(d)]
-    ).astype(np.int64)
-    head_w = limbs_to_words(
-        np.concatenate([head_bufs[j][: counts[j]].cpu().numpy()
-                        for j in range(d)]), k,
-    )
+    def heads_of(xs):
+        """All D shards' per-unitig rows on the host, each shard cut to
+        its head count."""
+        return np.concatenate(
+            [x[:n] for x, n in zip(gather_to_host(mesh, xs), counts)])
+
+    lens = heads_of(lengths).astype(np.int64)
+    cov_sum = heads_of(covs).astype(np.int64)
+    head_w = limbs_to_words(heads_of(head_bufs), k)
     total_body = int(lens.sum())
     # chunk j holds global body positions [j*k_cap, (j+1)*k_cap)
     bases = np.concatenate([
-        unpack_codes_np(packed[j].cpu().numpy(),
-                        min(k_cap, max(0, total_body - j * k_cap)))
-        for j in range(d)
+        unpack_codes_np(chunk, min(k_cap, max(0, total_body - j * k_cap)))
+        for j, chunk in enumerate(gather_to_host(mesh, packed))
     ])
     return build_unitig_arrays(bases, lens, cov_sum, head_w, k)

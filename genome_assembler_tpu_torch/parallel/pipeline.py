@@ -14,6 +14,12 @@ batch:
      buffers (``mesh.all_to_all``);
   4. sort/segment-reduce the received keys into the shard's table.
 
+Every per-shard list holds the LOCAL shards of the mesh (all D in one
+process; a rank's own under a process group, global shard
+``mesh.first_shard + i`` at list position i), and every value that steers
+the host's control flow is reduced over all D shards first, so the ranks
+of a multi-process run take the same branches in the same rounds.
+
 All occurrences of a canonical k-mer land on one owner, so each shard's
 counts are global counts, and the per-shard tables equal the reference's
 bit for bit. ``distributed_count_table`` gathers the shard tables onto
@@ -73,7 +79,8 @@ from .compress import (
     wire_bytes,
 )
 from .mesh import Mesh, all_gather, all_to_all, any_reduce, axis_size
-from .mesh import build_mesh, max_reduce, num_hosts
+from .mesh import barrier, build_mesh, gather_to_host, is_writer
+from .mesh import max_reduce, num_hosts
 
 # Above this many windows per shard, the counter streams read batches into
 # carried per-shard tables instead of counting the whole read set at once
@@ -106,7 +113,7 @@ def _make_owned_keys(
     def owned_keys_minimizer(packed, n_valid, inv):
         sw = span_words(k)
         sends, ovfs = [], []
-        for i in range(d):
+        for i in range(mesh.local_size):
             codes = unpack_codes(packed[i], read_len)
             b = codes.shape[0]
             row_ok = torch.arange(b, device=codes.device) < n_valid[i]
@@ -138,7 +145,7 @@ def _make_owned_keys(
         if minimizer_len is not None:
             return owned_keys_minimizer(packed, n_valid, inv)
         sends, ovfs = [], []
-        for i in range(d):
+        for i in range(mesh.local_size):
             kk = extract_canonical_flat(
                 packed[i], read_len, k, n_valid[i],
                 None if inv is None else inv[i],
@@ -274,17 +281,51 @@ class _StreamPlan:
         }
 
 
+def _tables_to_host(mesh: Mesh | None, tables: list[CountTable], k: int):
+    """All D shards' tables in the reference layout
+    (``count_table_to_numpy``'s tuples), on every process. mesh None: the
+    list already holds every shard."""
+    if mesh is None or not mesh.distributed:
+        return [count_torch.count_table_to_numpy(t, k) for t in tables]
+    cols = (
+        gather_to_host(mesh, xs) for xs in (
+            [t.limbs for t in tables],
+            [t.counts for t in tables],
+            [t.num_unique.reshape(1) for t in tables],
+            [t.overflow.reshape(1).to(torch.uint8) for t in tables],
+        )
+    )
+    return [
+        count_torch.count_table_to_numpy(CountTable(
+            torch.from_numpy(limbs), torch.from_numpy(counts),
+            torch.from_numpy(num)[0], torch.from_numpy(ovf)[0] != 0), k)
+        for limbs, counts, num, ovf in zip(*cols)
+    ]
+
+
+def _write_shared(mesh: Mesh | None, path: str, **arrays) -> None:
+    """One .npz for the whole mesh: the writer process writes it, and no
+    process goes on before it is there."""
+    if mesh is None or is_writer(mesh):
+        np.savez_compressed(path, **arrays)
+    if mesh is not None:
+        barrier(mesh)
+
+
 def save_sharded_stream_checkpoint(
     tables: list[CountTable], path: str, k: int, *, next_batch: int,
-    params: dict[str, int],
+    params: dict[str, int], mesh: Mesh | None = None,
 ) -> None:
     """Mid-stream checkpoint of the sharded streaming counter in the
     reference's format: per-shard tables concatenated (uint32 words
     [D*C, W], int32 counts [D*C], int32 num [D], bool ovf [D]), the batch
-    cursor, the layout tag and ``params``. Either package resumes it."""
-    parts = [count_torch.count_table_to_numpy(t, k) for t in tables]
-    np.savez_compressed(
-        path,
+    cursor, the layout tag and ``params``. Either package resumes it.
+    ``tables`` are the local shards of ``mesh`` (None: all of them);
+    across processes the shards are gathered to the host and rank 0
+    writes the one file, byte for byte what a single process writes."""
+    parts = _tables_to_host(mesh, tables, k)
+    _write_shared(
+        mesh, path,
         words=np.concatenate([p[0] for p in parts]),
         counts=np.concatenate([p[1] for p in parts]),
         num=np.asarray([p[2] for p in parts], dtype=np.int32),
@@ -314,15 +355,16 @@ def load_sharded_stream_checkpoint(path: str):
 
 
 def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int) -> list[CountTable]:
+    """The local shards' tables out of a checkpoint's all-D arrays."""
     d = axis_size(mesh)
     words = arrays["words"].reshape(d, c_shard, -1)
     counts = arrays["counts"].reshape(d, c_shard)
     return [
         count_torch.count_table_from_numpy(
             words[s], counts[s], arrays["num"][s], arrays["ovf"][s],
-            device=mesh.devices[s],
+            device=dev,
         )
-        for s in range(d)
+        for s, dev in zip(mesh.local_shards, mesh.devices)
     ]
 
 
@@ -414,16 +456,16 @@ def reshard_sharded_stream_checkpoint(
 
 def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int,
                  any_invalid):
-    """Raw code rows on the shards' devices (one [D*per_dev, L] block on a
-    single-device mesh, else one [per_dev, L] block a shard) -> (packed
-    per shard, invalid bits per shard or None). A single-device mesh
-    packs once and hands out contiguous row views."""
+    """Raw code rows on the local shards' devices (one [local*per_dev, L]
+    block on a single-device mesh, else one [per_dev, L] block a shard) ->
+    (packed per shard, invalid bits per shard or None). A single-device
+    mesh packs once and hands out contiguous row views."""
     planes = [pack_on_device(codes, any_invalid) for codes in blocks]
     if mesh.single_device:
         planes = [
             tuple(None if x is None else x[i * per_dev : (i + 1) * per_dev]
                   for x in planes[0])
-            for i in range(mesh.size)
+            for i in range(mesh.local_size)
         ]
     packed, inv = (list(col) for col in zip(*planes))
     return packed, inv if any_invalid else None
@@ -431,8 +473,11 @@ def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int,
 
 def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
                    metrics: Metrics | None):
-    """One plain upload of [D*per_dev, L] host reads, packed on the shards'
-    devices: (packed per shard, invalid bits per shard or None)."""
+    """One plain upload of this process's rows of [D*per_dev, L] host
+    reads, packed on the local shards' devices: (packed per shard, invalid
+    bits per shard or None)."""
+    rows = rows[mesh.first_shard * per_dev :
+                (mesh.first_shard + mesh.local_size) * per_dev]
     if metrics is not None:
         metrics.count("h2d_bytes_reads", rows.nbytes)
     host = torch.from_numpy(rows)
@@ -447,25 +492,26 @@ def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
 def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
                     first: int, any_invalid, metrics: Metrics | None = None,
                     *, pipelined: bool | None = None):
-    """Batches ``first..`` of a streamed run on the shards, uploaded
+    """Batches ``first..`` of a streamed run on the local shards, uploaded
     ``DIST_UPLOAD_PREFETCH`` ahead through an ``UploadRing`` with one copy
     stream a distinct device (a single-device mesh gets one upload that
     feeds all its shards): yields (i, packed per shard, invalid bits per
-    shard or None, n_valid per shard). Only the short tail batch is
-    padded; n_valid masks the padding. ``h2d_bytes_reads`` counts the
-    bytes sent."""
+    shard or None, n_valid per shard). A process fills and uploads only
+    the rows of its own shards. Only the short tail batch is padded;
+    n_valid masks the padding. ``h2d_bytes_reads`` counts the bytes this
+    process sent."""
     b, length = reads.shape
-    d = axis_size(mesh)
+    local_rows = plan.per_dev * mesh.local_size
 
     def fill(i, planes):
-        start = i * plan.batch_total
-        rows = reads[start : start + plan.batch_total]
+        start = i * plan.batch_total + mesh.first_shard * plan.per_dev
+        rows = reads[start : start + local_rows]
         planes[0][: rows.shape[0]] = rows
         planes[0][rows.shape[0] :] = 0
-        return plan.batch_total
+        return local_rows
 
     targets = (
-        [(mesh.devices[0], plan.batch_total)] if mesh.single_device
+        [(mesh.devices[0], local_rows)] if mesh.single_device
         else [(dev, plan.per_dev) for dev in mesh.devices]
     )
     ring = UploadRing(targets, [length], depth=DIST_UPLOAD_PREFETCH,
@@ -473,13 +519,13 @@ def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
     with ring:
         for i, blocks in ring.stream(first, plan.num_batches, fill):
             if metrics is not None:
-                metrics.count("h2d_bytes_reads", plan.batch_total * length)
+                metrics.count("h2d_bytes_reads", local_rows * length)
             packed, inv = _pack_shards(mesh, [blk[0] for blk in blocks],
                                        plan.per_dev, any_invalid)
             start = i * plan.batch_total
             n_valid = [
                 int(min(max(b - start - plan.per_dev * s, 0), plan.per_dev))
-                for s in range(d)
+                for s in mesh.local_shards
             ]
             yield i, packed, inv, n_valid
 
@@ -547,7 +593,7 @@ def _run_distributed_stream(
     def save(next_batch):
         save_sharded_stream_checkpoint(
             tables, stream_checkpoint, cfg.k, next_batch=next_batch,
-            params=plan.ck_params,
+            params=plan.ck_params, mesh=mesh,
         )
 
     for i, packed, inv, n_valid in _stream_batches(
@@ -597,7 +643,8 @@ def _run_distributed_step(
         reads = np.concatenate(
             [reads, np.zeros((per_dev * d - b, length), dtype=np.uint8)]
         )
-    n_valid = [int(min(max(b - per_dev * s, 0), per_dev)) for s in range(d)]
+    n_valid = [int(min(max(b - per_dev * s, 0), per_dev))
+               for s in mesh.local_shards]
     if bucket_cap is None:
         bucket_cap = _bucket_cap_for(
             per_dev * (length - cfg.k + 1), d, cfg.k, minimizer_len
@@ -634,6 +681,9 @@ def distributed_count_table(
     rows re-count once with their counts as weights: a re-sort into the
     global order, sized by the genome's unique k-mers. The result equals
     the single-device ``count_reads_device`` table up to ``num_unique``.
+    Across processes every rank receives the gathered rows and holds the
+    same table on its first device (the reference's hosts all run the
+    tail and all end with the same contigs).
     """
     tables = _run_distributed_step(
         reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity, metrics,
@@ -669,7 +719,9 @@ def assemble_distributed(
     one shard per visible GPU): the gathered genome-sized table then runs
     the single-device graph stages on shard 0's device. Contigs equal
     ``assemble_torch``'s, the reference's ``assemble_distributed``'s and
-    the oracle's.
+    the oracle's. Across processes every rank runs the graph stages on
+    the same gathered table and returns the same contigs; rank 0 writes
+    ``checkpoint``.
 
     checkpoint/resume_from: the gathered table as a stage-boundary .npz
     (either package's format). With stream_checkpoint_every=N > 0 the
@@ -692,7 +744,7 @@ def assemble_distributed(
     if resume_from is not None and not resume_stream:
         table = load_table(resume_from, dev)
     else:
-        with timed_stage(m, "count", mesh.devices):
+        with _stage(m, "count", mesh):
             table = distributed_count_table(
                 reads, cfg, mesh, minimizer_len=minimizer_len,
                 table_capacity=table_capacity, metrics=m,
@@ -702,10 +754,19 @@ def assemble_distributed(
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
             )
-    return assemble_from_table(
-        table, cfg, m, dev, emit=emit, checkpoint=checkpoint,
-        return_graph=return_graph,
+    out = assemble_from_table(
+        table, cfg, m, dev, emit=emit,
+        checkpoint=checkpoint if is_writer(mesh) else None,
+        return_graph=return_graph, after_stage=lambda: barrier(mesh),
     )
+    barrier(mesh)  # the table's checkpoint is there on every rank's return
+    return out
+
+
+def _stage(m: Metrics, name: str, mesh: Mesh):
+    """``timed_stage`` over the local shards' devices, closed by a barrier
+    of the mesh: a stage's seconds are the slowest process's."""
+    return timed_stage(m, name, mesh.devices, after=lambda: barrier(mesh))
 
 
 def _shard_filter_compact(tables: list[CountTable],
@@ -725,23 +786,26 @@ def _shard_filter_compact(tables: list[CountTable],
     return out
 
 
-def _shard_hist(tables: list[CountTable]) -> np.ndarray:
-    """Multiplicity histogram summed over the shards, the auto threshold's
-    input: each shard's 1001 bins cross to the host, no count column."""
+def _shard_hist(mesh: Mesh, tables: list[CountTable]) -> np.ndarray:
+    """Multiplicity histogram summed over all D shards, the auto
+    threshold's input (the same number on every process): each shard's
+    1001 bins cross to the host, no count column."""
     return sum(
-        count_torch.multiplicity_histogram(t).cpu().numpy().astype(np.int64)
-        for t in tables
+        h.astype(np.int64) for h in gather_to_host(
+            mesh, [count_torch.multiplicity_histogram(t) for t in tables])
     )
 
 
 def save_sharded_table(tables: list[CountTable], d: int, k: int,
-                       path: str) -> None:
+                       path: str, mesh: Mesh | None = None) -> None:
     """Checkpoint the hash-sharded count table in the reference's layout
     (``"hash_shards"``: uint32 words [D*C, W], int32 counts [D*C], d, k);
-    either package resumes it on a mesh of D shards."""
-    parts = [count_torch.count_table_to_numpy(t, k) for t in tables]
-    np.savez_compressed(
-        path,
+    either package resumes it on a mesh of D shards. ``tables`` are the
+    local shards of ``mesh`` (None: all of them); across processes rank 0
+    writes the one file of all D shards."""
+    parts = _tables_to_host(mesh, tables, k)
+    _write_shared(
+        mesh, path,
         words=np.concatenate([p[0] for p in parts]),
         counts=np.concatenate([p[1] for p in parts]),
         d=np.asarray(d),
@@ -751,8 +815,9 @@ def save_sharded_table(tables: list[CountTable], d: int, k: int,
 
 
 def load_sharded_table(path: str, mesh: Mesh, k: int) -> list[CountTable]:
-    """Restore a sharded-table checkpoint onto the mesh's shards; its D
-    and k must be this run's."""
+    """Restore a sharded-table checkpoint onto the mesh's local shards
+    (every process reads the file and keeps its rows); its D and k must
+    be this run's."""
     require_checkpoint_kind(path, "sharded_table")
     d = axis_size(mesh)
     with np.load(path) as z:
@@ -769,9 +834,9 @@ def load_sharded_table(path: str, mesh: Mesh, k: int) -> list[CountTable]:
         count_torch.count_table_from_numpy(
             words[s], counts[s],
             int((words[s] != np.uint32(0xFFFFFFFF)).any(axis=1).sum()),
-            False, device=mesh.devices[s],
+            False, device=dev,
         )
-        for s in range(d)
+        for s, dev in zip(mesh.local_shards, mesh.devices)
     ]
 
 
@@ -797,7 +862,8 @@ def assemble_distributed_sharded(
     (``parallel/compress.py``); per-device memory scales ~1/D and the
     host receives only packed bases and per-unitig rows. Requires odd k.
     Contigs equal ``assemble_distributed``'s, the reference's and the
-    oracle's.
+    oracle's. Across processes every rank ends with the same unitig
+    arrays on its host and returns the same contigs.
 
     checkpoint/resume_from: the pre-filter hash-sharded count table as
     .npz (``"hash_shards"``, either package's; the mesh size and k must
@@ -823,7 +889,7 @@ def assemble_distributed_sharded(
     if resume_from is not None and not resume_stream:
         tables = load_sharded_table(resume_from, mesh, cfg.k)
     else:
-        with timed_stage(m, "count", mesh.devices):
+        with _stage(m, "count", mesh):
             tables = _run_distributed_step(
                 reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity,
                 m, checkpoint if stream_checkpoint_every > 0 else None,
@@ -831,18 +897,23 @@ def assemble_distributed_sharded(
                 resume_from if resume_stream else None,
             )
     if checkpoint is not None:
-        save_sharded_table(tables, d, cfg.k, checkpoint)
+        save_sharded_table(tables, d, cfg.k, checkpoint, mesh)
 
-    with timed_stage(m, "filter", mesh.devices):
-        min_count = cfg.min_count or auto_min_count_hist(_shard_hist(tables))
+    with _stage(m, "filter", mesh):
+        min_count = cfg.min_count or auto_min_count_hist(
+            _shard_hist(mesh, tables))
         tables = _shard_filter_compact(tables, min_count)
-        # shrink every shard to one snug uniform capacity
+        # shrink every shard to one snug uniform capacity, the same on
+        # every process
         kept = int(max_reduce(mesh, [t.num_unique for t in tables]))
-        c_shard = min(max(t.limbs.shape[0] for t in tables),
-                      snug_capacity(kept))
+        cap = max(t.limbs.shape[0] for t in tables)
+        if mesh.distributed:
+            cap = int(max_reduce(
+                mesh, [torch.tensor(cap, device=mesh.devices[0])]))
+        c_shard = min(cap, snug_capacity(kept))
         tables = [count_torch.resize_table(t, c_shard) for t in tables]
 
-    with timed_stage(m, "compress", mesh.devices):
+    with _stage(m, "compress", mesh):
         wire = wire_bytes(d, cfg.k, c_shard)
         m.count("a2a_bytes_compress_link", wire["link"])
         m.count("a2a_bytes_compress_query_round", wire["query_round"])
@@ -850,6 +921,8 @@ def assemble_distributed_sharded(
                 comm_bytes_estimate(d, cfg.k, c_shard)["query_rounds_max"])
         g = make_sharded_compress(mesh, cfg.k, c_shard)(tables)
         m.count("a2a_compress_query_rounds", g.query_rounds)
+        m.count("compress_doubling_rounds", g.doubling_rounds)
+        m.count("compress_doubling_s", g.doubling_seconds)
         if g.overflow:
             which = [name for bit, name in OVERFLOW_CAPS if g.overflow & bit]
             raise RuntimeError(
@@ -857,16 +930,16 @@ def assemble_distributed_sharded(
                 f"{'+'.join(which)} (bits {g.overflow}); increase the "
                 "corresponding slack cap (parallel/compress.py)"
             )
-    with timed_stage(m, "spell", mesh.devices):
+    with _stage(m, "spell", mesh):
         ua = spell_sharded_arrays(
             mesh, cfg.k, c_shard, g.num_unitigs, g.valid, g.uid, g.pos,
             g.cov, g.heads, g.edge_limbs, metrics=m,
         )
-    with timed_stage(m, "simplify", mesh.devices):
+    with _stage(m, "simplify", mesh):
         graph = simplify_arrays_to_graph(
             ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
         )
-    with timed_stage(m, "traverse", mesh.devices):
+    with _stage(m, "traverse", mesh):
         contigs = (
             emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
         )

@@ -234,10 +234,87 @@ def test_verbose_logs_the_stages(reads_file, tmp_path, caplog):
 
 
 def test_flags_that_the_port_does_not_have():
-    for flag in ("--pallas", "--bucketed", "--merge-stride", "--hosts"):
+    for flag in ("--pallas", "--bucketed", "--merge-stride"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(["assemble", flag, "1"])
     with pytest.raises(ValueError, match="--backend dist"):
         cli.cmd_assemble(cli.build_parser().parse_args(
             ["assemble", "--preset", "toy10k", "--device", "cpu",
              "--sharded-graph"]))
+
+
+def test_hosts_reaches_build_mesh(reads_file, tmp_path, monkeypatch):
+    """``--hosts`` parses, reaches ``build_mesh`` and shows in the metrics:
+    in one process it is a factorisation of ``--devices`` only."""
+    from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
+
+    seen = []
+    real = mesh_mod.build_mesh
+
+    def build_mesh(num_shards=None, devices=None, hosts=None):
+        seen.append((num_shards, hosts))
+        return real(num_shards, devices=devices, hosts=hosts)
+
+    monkeypatch.setattr(mesh_mod, "build_mesh", build_mesh)
+    outs = {}
+    for name, extra in (("flat", []), ("hosts", ["--hosts", "2"])):
+        outs[name] = tmp_path / f"{name}.fa"
+        assert cli.main(["assemble", "--reads", reads_file, "-k", "25",
+                         "--device", "cpu", "--backend", "dist", "--devices",
+                         "4", *extra, "--out", str(outs[name]), "--metrics-out",
+                         str(tmp_path / f"{name}.json")]) == 0
+    assert seen == [(4, None), (4, 2)]
+    assert _read(outs["flat"]) == _read(outs["hosts"])
+    with open(tmp_path / "hosts.json") as fh:
+        report = json.load(fh)
+    assert report["hosts"] == 2 and report["counters"]["hosts"] == 2
+    assert report["rank"] == 0 and report["local_shards"] == [0, 1, 2, 3]
+    assert report["derived"]["reads_per_s_per_host"] == pytest.approx(
+        report["derived"]["reads_per_s"] / 2, rel=1e-3)
+    with open(tmp_path / "flat.json") as fh:
+        assert json.load(fh)["hosts"] == 1
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--backend", "dist", "--devices", "4", "--hosts", "3"], "split evenly"),
+    (["--hosts", "2"], "--backend dist"),
+])
+def test_hosts_errors(reads_file, capsys, argv, message):
+    assert cli.main(["assemble", "--reads", reads_file, "-k", "25",
+                     "--device", "cpu", *argv]) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_accept_sets_the_weak_scaling_bar(capsys):
+    """The bar of config 4 from the command line, in the JSON."""
+    args = ["accept", "4", "--scale", "0.001", "--device", "cpu", "--devices",
+            "2"]
+    assert cli.main(args) == 0
+    assert json.loads(capsys.readouterr().out)["weak_scaling_bar"] is None
+    # shards of one CPU share it: an efficiency of 0.5 is out of reach ...
+    rc = cli.main(args + ["--enforce-weak-scaling", "--weak-scaling-min",
+                          "0.5"])
+    line = json.loads(capsys.readouterr().out)
+    assert line["weak_scaling_bar"] == 0.5
+    assert line["passed"] == (line["weak_scaling_eff"]["2"] >= 0.5)
+    assert rc == (0 if line["passed"] else 1)
+    # ... and the default is the reference's 0.8
+    assert cli.build_parser().parse_args(
+        ["accept", "4", "--enforce-weak-scaling"]).weak_scaling_min == 0.8
+
+
+def test_accept_multiprocess_runs_a_rank_a_shard(capsys):
+    """``accept 4 6 --multiprocess`` on the CPU: every sharded point is
+    ranks over gloo, and the bars are the same."""
+    assert cli.main(["accept", "4", "6", "--scale", "0.001", "--device",
+                     "cpu", "--devices", "2", "--multiprocess",
+                     "--enforce-weak-scaling", "--weak-scaling-min",
+                     "0.001"]) == 0
+    four, six = (json.loads(ln) for ln in
+                 capsys.readouterr().out.strip().splitlines())
+    assert four["config"] == 4 and four["passed"] and four["multiprocess"]
+    assert four["devices"] == [1, 2] and four["weak_scaling_bar"] == 0.001
+    assert four["counts_match_host"] and four["oracle_cross_checked"]
+    assert four["sharded_run_metrics"]["counters"]["hosts"] == 2
+    assert six["config"] == 6 and six["passed"] and six["multiprocess"]
+    assert six["sharded_run_metrics"]["counters"]["hosts"] == 2

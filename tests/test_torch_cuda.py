@@ -292,3 +292,33 @@ def test_trace_holds_cuda_kernels_and_stages(cuda_device, tmp_path):
     derived = m.report()["derived"]
     assert derived["count_bytes_per_s"] > 0
     assert 0 <= derived["hbm_roofline_frac"] < 1  # rounded to 3 places
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_nccl_ranks_equal_single_process_mesh(tmp_path, world):
+    """The multi-process mesh over NCCL, a card a rank (4 shards over
+    ``world`` ranks): every collective alone, the per-rank count tables, the
+    sharded compression and both kinds of checkpoint against the
+    single-process mesh on the same card, bit for bit. The ranks are
+    ``tests/test_torch_mesh.py`` run as a script (it imports no JAX
+    either); one rank needs one card, more ranks as many cards."""
+    import json
+    import os
+
+    from genome_assembler_tpu_torch.parallel.launch import spawn
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    if torch.cuda.device_count() < world:
+        pytest.skip(f"needs {world} cards, {torch.cuda.device_count()} visible")
+    out = str(tmp_path / "r")
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "test_torch_mesh.py")
+    res = spawn(world, ["--job", "checks", "--out", out], device="cuda",
+                timeout_s=600.0, entry=(worker,))
+    assert res.ok, res.describe()
+    for r in range(world):
+        with open(f"{out}.rank{r}.json") as fh:
+            verdicts = json.load(fh)
+        assert verdicts and all(v is None for v in verdicts.values()), {
+            k: v for k, v in verdicts.items() if v is not None}

@@ -20,7 +20,8 @@ SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
 ) + ["chip_smoke.py", os.path.join("tools", "probe_kmer_extract.py"),
-     os.path.join("tools", "probe_upload.py")]
+     os.path.join("tools", "probe_upload.py"),
+     os.path.join("tools", "probe_mesh.py")]
 
 
 def is_foreign(name: str) -> bool:
@@ -68,6 +69,10 @@ def test_every_port_module_is_walked():
                  "genome_assembler_tpu_torch/utils/upload.py",
                  "genome_assembler_tpu_torch/utils/metrics.py",
                  "tools/probe_upload.py",
+                 "tools/probe_mesh.py",
+                 "genome_assembler_tpu_torch/parallel/mesh.py",
+                 "genome_assembler_tpu_torch/parallel/launch.py",
+                 "genome_assembler_tpu_torch/models/acceptance_rank.py",
                  "genome_assembler_tpu_torch/models/pipeline.py",
                  "genome_assembler_tpu_torch/ops/kmer_ref.py",
                  "genome_assembler_tpu_torch/parallel/compress.py",
@@ -185,3 +190,25 @@ def test_new_commands_load_nothing_foreign(tmp_path):
     proc = _run(code, str(tmp_path))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_spawned_ranks_load_nothing_foreign(tmp_path):
+    """Two gloo ranks of ``assemble --backend dist --sharded-graph``
+    started by ``parallel/launch.py::spawn``: each ends with neither JAX
+    nor the JAX package loaded."""
+    from genome_assembler_tpu_torch.parallel.launch import spawn
+
+    code = (
+        "import sys\n"
+        "from genome_assembler_tpu_torch import cli\n"
+        "rc = cli.main(['assemble', '--preset', 'toy10k', '--coverage', '12',\n"
+        "               '-k', '25', '--backend', 'dist', '--devices', '2',\n"
+        "               '--sharded-graph', '--out', 'c.fa'] + sys.argv[1:])\n"
+        "assert rc == 0, rc\n"
+    ) + CHECK_MODULES
+    res = spawn(2, [], device="cpu", timeout_s=300.0, entry=("-c", code),
+                cwd=str(tmp_path))
+    assert res.ok, res.describe()
+    assert [out.strip() for out in res.stdout] == ["ok", "ok"]
+    with open(tmp_path / "c.fa") as a, open(tmp_path / "c.fa.rank1") as b:
+        assert a.read() == b.read()
