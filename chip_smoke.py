@@ -80,12 +80,32 @@ result line:
      phases 7-8's single-process numbers. Where only one card is visible
      NCCL cannot hold two ranks on it: the phase then runs one rank with
      four local shards through the same ``torch.distributed`` calls and
-     prints ``"ranks": 1, "cross_process": false``.
+     prints ``"ranks": 1, "cross_process": false``;
+ 14. the ranking: on CFG-2's full-size filtered table (9.4M edge rows)
+     ``compress_unitigs_device`` takes the sampled two-level pass, and its
+     outputs equal the forced exact pass's bit for bit; both are timed
+     warm with CUDA events over three calls, whole and the ranking alone,
+     with the rounds of phase A, phase B and the exact pass. On CFG-5's
+     circular table (4,641,652 bp, 50x) the sampled pass must refuse, and
+     the cyclic pass must accept and equal the exact pass. CFG-4 through
+     the sharded graph on 4 shards (phase 7's reads, counted and filtered
+     as ``assemble_distributed_sharded`` does), sampled against forced
+     exact: per-shard outputs equal, query rounds below the exact pass's
+     26 at this size, query rounds, doubling seconds and ``compress``
+     seconds of each; where more than one card is visible the same
+     again as ``min(4, cards)`` NCCL ranks (this script with
+     ``--rank-compress``, started by ``parallel/launch.py::spawn``);
+ 15. the bucketed merge: CFG-4's 12,000,000 reads on one device through
+     ``count_reads_device`` with ``bucketed="off"`` and ``"on"`` (``"auto"``
+     must pick ``"on"`` at this size), the tables bit-equal, ``count``
+     seconds of each and the geometry printed; a bucketed stop and resume
+     on CFG-2's reads equals the uninterrupted run; CFG-4 on 4 shards with
+     ``bucketed="on"`` against ``"off"``: per-shard tables equal.
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
-phase's ring run, the acceptance runners and the multi-process ranks, and
-given for each in ``launches_by_path``); the last line is
+phase's ring run, the acceptance runners, the multi-process ranks and the
+bucketed counts of phase 15, and given for each in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
 """
@@ -910,6 +930,335 @@ def phase_multiprocess(torch, ref, launch, reads, capacity, contigs, ck8,
     return launches
 
 
+def filtered_table(pipeline, count_torch, reads, cfg, capacity, dev):
+    """The filtered, compacted table ``assemble_torch`` hands to
+    ``compress_unitigs_device``."""
+    t = pipeline.count_reads_device(reads, cfg, device=dev,
+                                    table_capacity=capacity)
+    t = count_torch.compact_table(t)
+    t = count_torch.filter_table(t, cfg.min_count or pipeline.auto_min_count(t))
+    return count_torch.compact_table(t)
+
+
+def check_equal_fields(torch, got, want, fields, what) -> None:
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, list):
+            same = all(torch.equal(x, y) for x, y in zip(a, b))
+        else:
+            same = torch.equal(a, b) if torch.is_tensor(a) else a == b
+        check(same, f"{what}: {f} differs")
+
+
+UNITIG_FIELDS = ("edge_limbs", "cov", "uid", "pos", "valid", "num_unitigs")
+SHARDED_FIELDS = ("valid", "uid", "pos", "cov", "last_base", "heads",
+                  "edge_limbs", "num_unitigs", "overflow")
+
+
+def timed_compress(torch, fn, tables, reps=3):
+    """(outputs, seconds of each of ``reps`` warm calls) of a sharded
+    compress step (its loops read the host, so wall clock is the time)."""
+    out = fn(tables)
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(tables)
+        torch.cuda.synchronize()
+        secs.append(round(time.perf_counter() - t0, 4))
+    return out, secs
+
+
+def sharded_numbers(g, secs) -> dict:
+    return {"rank_pass": g.rank_pass, "query_rounds": g.query_rounds,
+            "doubling_rounds": g.doubling_rounds,
+            "contracted_rounds": g.contracted_rounds,
+            "doubling_s": round(g.doubling_seconds, 4), "compress_s": secs}
+
+
+def phase_ranking(torch, ref, pipeline, dist, mesh_mod, launch, cfg2_reads,
+                  cfg2_cap, cfg4, reads_file, dev, tmp):
+    """Phase 14: the sampled ranking against the exact pass on CFG-2,
+    CFG-5 and CFG-4 sharded."""
+    from genome_assembler_tpu_torch.ops import count_torch, unitig_torch
+    from genome_assembler_tpu_torch.parallel import compress
+    from genome_assembler_tpu_torch.utils.keys import snug_capacity
+
+    k = 31
+    cfg = ref.AssemblyConfig(k=k, read_len=100)
+    table = filtered_table(pipeline, count_torch, cfg2_reads, cfg, cfg2_cap,
+                           dev)
+    rs, re = {}, {}
+    got = unitig_torch.compress_unitigs_device(table, k, rounds=rs)
+    want = unitig_torch.compress_unitigs_device(table, k, rounds=re,
+                                                _exact=True)
+    rows = got.edge_limbs.shape[0]
+    check(rs["pass"] == "sampled" and rows >= unitig_torch.SAMPLED_MIN_ROWS,
+          f"CFG-2 compress took the {rs['pass']} pass at {rows} edge rows")
+    check_equal_fields(torch, got, want, UNITIG_FIELDS,
+                       "CFG-2 sampled vs exact")
+    whole = {
+        "sampled": time_cuda(torch, lambda: unitig_torch.compress_unitigs_device(
+            table, k), 3),
+        "exact": time_cuda(torch, lambda: unitig_torch.compress_unitigs_device(
+            table, k, _exact=True), 3),
+    }
+    edges, _, valid = unitig_torch._build_edges(table, k)
+    prev = unitig_torch._link_sortjoin(edges, valid, k)
+    alone = {
+        "sampled": time_cuda(torch, lambda: unitig_torch._resolve_chains(
+            prev, valid), 3),
+        "exact": time_cuda(torch, lambda: unitig_torch._resolve_chains(
+            prev, valid, exact=True), 3),
+    }
+    log("ranking, CFG-2: " + json.dumps({
+        "edge_rows": rows, "unitigs": int(got.num_unitigs),
+        "sampled_rounds_a": rs["a"], "sampled_rounds_b": rs["b"],
+        "exact_rounds": re["exact"], "bit_equal": True,
+        "compress_ms": {n: round(v, 3) for n, v in whole.items()},
+        "ranking_ms": {n: round(v, 3) for n, v in alone.items()}}))
+    del got, want, edges, prev, valid, table
+
+    # CFG-5: the circular genome's graph is one cycle a strand
+    glen = 4_641_652
+    genome = ref.simulate_genome(glen, seed=1060)
+    rs5 = ref.simulate_reads(genome, coverage=50, read_len=100, seed=1061,
+                             tile_k=k, circular=True)
+    table = filtered_table(pipeline, count_torch, rs5.codes, cfg,
+                           snug_capacity(int(1.1 * glen) + 4096), dev)
+    del rs5
+    edges, _, valid = unitig_torch._build_edges(table, k)
+    prev = unitig_torch._link_sortjoin(edges, valid, k)
+    _, _, ok = unitig_torch._rank_sampled(prev)
+    check(not ok, "CFG-5: the sampled pass accepted a circular graph")
+    rc = {}
+    head, rank, ok, prev3 = unitig_torch._rank_sampled_cyclic(prev, rc)
+    check(ok, "CFG-5: the cyclic pass refused the circular graph")
+    cyc = unitig_torch._finalize_chains(prev3, head, rank, valid)
+    exact = unitig_torch._resolve_exact(prev, valid)
+    check(all(torch.equal(a, b) for a, b in zip(cyc, exact)),
+          "CFG-5: the cyclic pass != the exact pass")
+    r5 = {}
+    unitig_torch.compress_unitigs_device(table, k, rounds=r5)
+    check(r5["pass"] == "cyclic", f"CFG-5 compress took {r5['pass']}")
+    log("ranking, CFG-5: " + json.dumps({
+        "edge_rows": int(prev.shape[0]), "unitigs": int(cyc[2]),
+        "sampled_ok": False, "cyclic_ok": True, "equal_to_exact": True,
+        "cyclic_rounds": rc,
+        "ranking_ms": {
+            "sampled_then_cyclic": round(time_cuda(
+                torch, lambda: unitig_torch._resolve_chains(prev, valid), 3), 3),
+            "exact": round(time_cuda(torch, lambda: unitig_torch._resolve_chains(
+                prev, valid, exact=True), 3), 3)}}))
+    del table, edges, prev, prev3, valid, head, rank, cyc, exact
+
+    # CFG-4 through the sharded graph, one process
+    reads, cfg4, capacity, _ = cfg4
+    mesh = mesh_mod.build_mesh(4)
+    tables = dist._run_distributed_step(reads, cfg4, mesh,
+                                        table_capacity=capacity)
+    tables, c_shard, _ = dist.filter_shards(mesh, tables, cfg4)
+    runs = {name: timed_compress(torch, compress.make_sharded_compress(
+        mesh, k, c_shard, _exact=name == "exact"), tables)
+        for name in ("sampled", "exact")}
+    (gs, ss), (ge, se) = runs["sampled"], runs["exact"]
+    check(gs.rank_pass == "sampled", "CFG-4 sharded: the sampled pass refused")
+    check_equal_fields(torch, gs, ge, SHARDED_FIELDS,
+                       "CFG-4 sharded sampled vs exact")
+    check(gs.query_rounds < 26 and gs.query_rounds < ge.query_rounds,
+          f"CFG-4 sharded: {gs.query_rounds} query rounds sampled, "
+          f"{ge.query_rounds} exact")
+    single = {"sampled": sharded_numbers(gs, ss),
+              "exact": sharded_numbers(ge, se)}
+    log("ranking, CFG-4 sharded graph on " + str(mesh) + ": " + json.dumps({
+        "c_shard": c_shard, "edge_rows": 4 * 2 * c_shard,
+        "outputs_equal": True, **single}))
+    del gs, ge, tables, runs
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("ranking, CFG-4 across ranks: one card is visible, not run")
+        return
+    ranks = min(4, cards)
+    out = os.path.join(tmp, "rank_compress.json")
+    torch.cuda.empty_cache()
+    res = launch.spawn(ranks, [reads_file, out, str(capacity)],
+                       device="cuda", timeout_s=RANKS_LIMIT_S,
+                       entry=(os.path.abspath(__file__), "--rank-compress"))
+    check(res.ok, "ranking across ranks: " + res.describe())
+    with open(out) as fh:
+        across = json.load(fh)
+    check(across["outputs_equal"], "ranking across ranks: sampled != exact")
+    check(across["sampled"]["query_rounds"] < 26,
+          f"ranking across ranks: {across['sampled']['query_rounds']} rounds")
+    log(f"ranking, CFG-4 sharded graph as {ranks} NCCL ranks: "
+        + json.dumps(across))
+
+
+def rank_compress_job(reads_file: str, out: str, capacity: str,
+                      device: str) -> int:
+    """One rank of phase 14 across processes: count and filter CFG-4 on
+    4 shards over the ranks, then the sharded compress sampled and forced
+    exact, 3 warm calls each; rank 0 writes the numbers to ``out``."""
+    import torch
+
+    import genome_assembler_tpu_torch.reference as ref
+    from genome_assembler_tpu_torch.cli import _load_reads
+    from genome_assembler_tpu_torch.parallel import compress
+    from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
+    from genome_assembler_tpu_torch.parallel import pipeline as dist
+
+    mesh_mod.init_distributed("nccl" if device == "cuda" else "gloo")
+    mesh = mesh_mod.build_mesh(4, devices=None if device == "cuda" else [device])
+    reads = _load_reads(reads_file)
+    cfg = ref.AssemblyConfig(k=31, read_len=reads.shape[1])
+    tables = dist._run_distributed_step(reads, cfg, mesh,
+                                        table_capacity=int(capacity))
+    tables, c_shard, _ = dist.filter_shards(mesh, tables, cfg)
+    sync = (torch.cuda.synchronize if device == "cuda" else lambda: None)
+    runs = {}
+    for name in ("sampled", "exact"):
+        fn = compress.make_sharded_compress(mesh, 31, c_shard,
+                                            _exact=name == "exact")
+        g = fn(tables)
+        secs = []
+        for _ in range(3):
+            mesh_mod.barrier(mesh)
+            sync()
+            t0 = time.perf_counter()
+            g = fn(tables)
+            sync()
+            mesh_mod.barrier(mesh)
+            secs.append(round(time.perf_counter() - t0, 4))
+        runs[name] = (g, secs)
+    (gs, ss), (ge, se) = runs["sampled"], runs["exact"]
+    differ = [
+        not all(torch.equal(getattr(gs, f)[i], getattr(ge, f)[i])
+                for f in SHARDED_FIELDS[:7])
+        for i in range(mesh.local_size)
+    ]
+    differ = mesh_mod.any_reduce(mesh, [
+        torch.tensor(x, device=d_) for x, d_ in zip(differ, mesh.devices)])
+    same = (not bool(differ) and gs.num_unitigs == ge.num_unitigs
+            and gs.overflow == ge.overflow == 0)
+    if mesh_mod.is_writer(mesh):
+        with open(out, "w") as fh:
+            json.dump({"ranks": mesh.hosts, "c_shard": c_shard,
+                       "outputs_equal": same,
+                       "sampled": sharded_numbers(gs, ss),
+                       "exact": sharded_numbers(ge, se)}, fh)
+    mesh_mod.barrier(mesh)
+    mesh_mod.shutdown_distributed()
+    return 0
+
+
+def tables_bit_equal(torch, a, b) -> bool:
+    """Whole tables equal, capacity, padding and flags included."""
+    return (a.limbs.shape == b.limbs.shape and torch.equal(a.limbs, b.limbs)
+            and torch.equal(a.counts, b.counts)
+            and int(a.num_unique) == int(b.num_unique)
+            and bool(a.overflow) == bool(b.overflow))
+
+
+def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
+                   cfg2_reads, cfg2_cap, dev):
+    """Phase 15: the bucketed streaming merge against the flat one on one
+    device and on 4 shards; a bucketed stop and resume."""
+    import numpy as np
+
+    reads, cfg, capacity, _ = cfg4
+    merge_windows = cfg.batch_reads * (100 - cfg.k + 1)
+    check(pipeline.use_bucketed("auto", capacity + merge_windows),
+          "CFG-4 on one device: auto did not pick the bucketed layout")
+    plan = pipeline.bucket_plan(capacity, merge_windows, buckets=None,
+                                accum=None)
+    launches = {}
+
+    def count(layout):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        t = pipeline.count_reads_device(reads, cfg, device=dev,
+                                        table_capacity=capacity,
+                                        bucketed=layout)
+        torch.cuda.synchronize(dev)
+        return t, round(time.perf_counter() - t0, 4)
+
+    secs = {"off": [], "on": []}
+    tables = {}
+    for layout in ("off", "on", "off", "on"):
+        if layout == "on" and not secs["on"]:
+            kmer.extract_canonical_flat.launches = 0
+        tables[layout], s_ = count(layout)
+        if layout == "on" and not secs["on"]:
+            launches["cfg4_bucketed_one_device"] = (
+                kmer.extract_canonical_flat.launches)
+        secs[layout].append(s_)
+    check(tables_bit_equal(torch, tables["on"], tables["off"]),
+          "CFG-4 on one device: bucketed table != flat table")
+    check(launches["cfg4_bucketed_one_device"] == -(-reads.shape[0]
+                                                    // cfg.batch_reads),
+          "the bucketed count did not launch the kernel once a batch")
+    log("bucketed, CFG-4 on one device: " + json.dumps({
+        "merge_rows": capacity + merge_windows,
+        "bound": pipeline.BUCKETED_MIN_MERGE_ROWS, "auto_picks": "on",
+        "nb": plan.nb, "cb": plan.cb, "m": plan.m, "accum": plan.accum,
+        "unique": int(tables["on"].num_unique), "bit_equal": True,
+        "count_s": secs}))
+    del tables
+
+    # a bucketed stop and resume, CFG-2's reads, one device
+    cfg2 = ref.AssemblyConfig(k=31, read_len=100)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "mid_bucketed.npz")
+        kw = dict(device=dev, table_capacity=cfg2_cap, bucketed="on")
+        full = pipeline.count_reads_device(cfg2_reads, cfg2, **kw)
+        expect_stop(lambda: pipeline.count_reads_device(
+            cfg2_reads, cfg2, stream_checkpoint=ck, stream_checkpoint_every=3,
+            abort_after_batch=6, **kw))
+        with np.load(ck) as z:
+            at = int(z["next_start"]) // cfg2.batch_reads
+            geometry = [int(z[n]) for n in ("nb", "cb", "m", "accum")]
+        check(at == 4, f"the bucketed snapshot is at batch {at}, not the "
+              "first merge after batch 3")
+        resumed = pipeline.count_reads_device(cfg2_reads, cfg2,
+                                              resume_stream_from=ck, **kw)
+        check(tables_bit_equal(torch, resumed, full),
+              "bucketed resume != uninterrupted bucketed run")
+    log(f"bucketed resume, CFG-2's reads on one device: stopped after 6 of "
+        f"9 batches, resumed from the snapshot after batch 4 (the first "
+        f"merge after batch 3; nb, cb, m, accum {geometry}), table equal "
+        f"to the uninterrupted run")
+    del full, resumed
+
+    # CFG-4 on 4 shards
+    mesh = mesh_mod.build_mesh(4)
+    shard_tables, shard_secs = {}, {}
+    for layout in ("off", "on"):
+        if layout == "on":
+            kmer.extract_canonical_flat.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shard_tables[layout] = dist._run_distributed_step(
+            reads, cfg, mesh, table_capacity=capacity, bucketed=layout)
+        torch.cuda.synchronize()
+        shard_secs[layout] = round(time.perf_counter() - t0, 4)
+    launches["cfg4_bucketed_4_shards"] = kmer.extract_canonical_flat.launches
+    check(launches["cfg4_bucketed_4_shards"] > 0,
+          "the bucketed 4-shard count never launched the kernel")
+    check(all(tables_bit_equal(torch, a, b) for a, b in
+              zip(shard_tables["on"], shard_tables["off"])),
+          "CFG-4 on 4 shards: bucketed shard tables != flat ones")
+    splan = dist._StreamPlan(reads.shape[0], 100, cfg, 4, None, None,
+                             capacity, "on")
+    log("bucketed, CFG-4 on " + str(mesh) + ": " + json.dumps({
+        "auto_picks": "on" if dist._StreamPlan(
+            reads.shape[0], 100, cfg, 4, None, None,
+            capacity).buckets else "off",
+        "c_shard": splan.c_shard, **splan.buckets._asdict(),
+        "shard_tables_bit_equal": True, "count_s": shard_secs}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -948,7 +1297,6 @@ def main() -> int:
                  dev)
     by_path["cfg2_upload_ring"] = phase_upload(
         torch, ref, pipeline, metrics_mod, kmer, cfg2_reads, cfg2_cap, dev)
-    del cfg2_reads
     by_path["accept_0_1_2_5"] = phase_accept(torch, acceptance, kmer)
     phase_cli(metrics_mod)
     cfg4_reads, _, cfg4_cap, cfg4_contigs = cfg4
@@ -956,8 +1304,13 @@ def main() -> int:
     by_path["cfg4_multiprocess"] = phase_multiprocess(
         torch, ref, launch, cfg4_reads, cfg4_cap, cfg4_contigs, ck8,
         single_gathered, single_sharded, keep.name)
+    phase_ranking(torch, ref, pipeline, dist, mesh_mod, launch, cfg2_reads,
+                  cfg2_cap, cfg4, os.path.join(keep.name, "cfg4_reads.txt"),
+                  dev, keep.name)
     keep.cleanup()
-    del cfg4, cfg4_reads
+    by_path.update(phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer,
+                                  cfg4, cfg2_reads, cfg2_cap, dev))
+    del cfg4, cfg4_reads, cfg2_reads
     foreign = sorted(
         name for name in sys.modules
         if name == "jax" or name.startswith("jax.")
@@ -985,6 +1338,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-compress"]:
+        # a rank of phase 14: READS OUT CAPACITY --device DEVICE
+        sys.exit(rank_compress_job(*sys.argv[2:5], sys.argv[6]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

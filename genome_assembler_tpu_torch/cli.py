@@ -9,6 +9,7 @@
     ga-torch assemble --reads reads.txt --gfa g.gfa --stats --trace-dir trace/
     torchrun --nproc-per-node 4 -m genome_assembler_tpu_torch.cli assemble \
         --reads reads.txt --backend dist --devices 4 --hosts 4   # a rank a card
+    ga-torch assemble --reads reads.txt --table-capacity 20000000 --bucketed on
     ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
     ga-torch stats contigs.fa
     ga-torch accept 0 1 2 --device cuda
@@ -26,7 +27,11 @@ processes with torch's launch variables (``torchrun``, or
 ``parallel/launch.py::spawn``), ``--backend dist`` runs one rank a process
 over a ``torch.distributed`` group (NCCL on cards, gloo with ``--device
 cpu``): every rank runs the identical command on the same reads file and
-owns ``--devices / --hosts`` shards. ``--trace-dir`` wraps the
+owns ``--devices / --hosts`` shards. ``--bucketed`` picks the streaming
+count table's layout (hash buckets merged a few batches at a time, or one
+flat table; ``auto`` takes the buckets once one merge passes 25 x 2^20
+rows, as ``ga-tpu`` does); the counts are the same either way.
+``--trace-dir`` wraps the
 run in ``torch.profiler`` and leaves a Chrome trace there, every stage a
 named span. Read parsing, FASTA output and
 the read simulator are the port's own copies of the reference package's
@@ -335,6 +340,7 @@ def cmd_assemble(args) -> int:
         emit=args.emit,
         table_capacity=args.table_capacity,
         stream_checkpoint_every=args.stream_checkpoint_every,
+        bucketed=args.bucketed,
     )
     with profiler_trace(args.trace_dir):
         if mesh is None:
@@ -394,7 +400,7 @@ def cmd_reshard(args) -> int:
     cfg = AssemblyConfig(k=args.k, read_len=reads.shape[1], **_batch(args))
     reshard_sharded_stream_checkpoint(
         args.infile, args.out, reads.shape, cfg, args.devices,
-        table_capacity=args.table_capacity,
+        table_capacity=args.table_capacity, bucketed=args.bucketed,
     )
     print(f"resharded {args.infile} -> {args.out} for {args.devices} shards",
           file=sys.stderr)
@@ -519,6 +525,12 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--sharded-graph", action="store_true",
                     help="keep the graph sharded through compression "
                     "(per-device memory ~1/D; --backend dist, odd k)")
+    pa.add_argument("--bucketed", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the streaming count table's layout: hash buckets "
+                    "(on), one flat table (off), or buckets once one merge "
+                    "passes 25 x 2^20 rows (auto, the default; torch and "
+                    "dist backends; every shard's table with dist)")
     pa.set_defaults(fn=cmd_assemble)
 
     rp = sub.add_parser(
@@ -535,6 +547,10 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("-k", type=int, default=31)
     rp.add_argument("--batch-reads", type=int, default=None)
     rp.add_argument("--table-capacity", type=int, default=None)
+    rp.add_argument("--bucketed", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="the layout the resumed run will take (its "
+                    "--bucketed); the input may be in either")
     rp.set_defaults(fn=cmd_reshard)
 
     pst = sub.add_parser(

@@ -3,7 +3,8 @@
 Counterpart of ``genome_assembler_tpu/models/pipeline.py::assemble_tpu``:
 
   2-bit-packed reads -> canonical k-mers   ops.kmer_torch (CUDA kernel)
-  count (single shot or flat streaming)    ops.count_torch
+  count (single shot, flat streaming, or   ops.count_torch,
+    hash-bucketed streaming)               ops.bucketed_torch
   compaction + coverage filter             ops.count_torch
   unitig compression (odd k)               ops.unitig_torch
   spelling reduction                       ops.unitig_torch + host.dbg
@@ -18,13 +19,17 @@ host slots, a copy stream, two batches queued ahead of the one being
 counted, and nothing between two batches that waits for the device.
 Even k takes the reference's host-dict graph branch. The streaming
 counter can snapshot its table and batch cursor mid-stream and resume
-from such a snapshot, in the reference's format.
+from such a snapshot, in the reference's format. Past
+``BUCKETED_MIN_MERGE_ROWS`` rows a merge (the reference's bound) it keeps
+its table in hash buckets and merges every ``BUCKET_ACCUM`` batches, as
+the reference does, so both packages pick one layout for one run.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,6 +44,17 @@ from ..utils.metrics import Metrics, log
 
 from ..host.dbg import spell_device_arrays
 from ..ops import count_torch
+from ..ops.bucketed_torch import (
+    BucketedTable,
+    auto_buckets,
+    bucket_geometry,
+    bucketed_from_numpy,
+    bucketed_to_numpy,
+    empty_bucketed,
+    flatten_bucketed,
+    merge_packed_bucketed,
+    route_pack_keys,
+)
 from ..ops.count_torch import CountTable
 from ..ops.kmer_torch import (
     extract_canonical_flat,
@@ -47,7 +63,7 @@ from ..ops.kmer_torch import (
 )
 from ..ops.unitig_torch import compress_unitigs_device
 from ..utils.device import resolve_device, synchronize
-from ..utils.keys import limbs_to_words, n_limbs
+from ..utils.keys import SENTINEL, limbs_to_words, n_limbs
 from ..utils.upload import UploadRing
 
 # Above this many windows the counter streams batches into a bounded
@@ -57,6 +73,19 @@ SINGLE_SHOT_WINDOWS = 1 << 27
 # Batches uploaded ahead of the one being counted (the reference's
 # prefetch depth).
 UPLOAD_PREFETCH = 2
+# The streaming merge keeps its table in hash buckets (``bucketed="auto"``)
+# once one merge passes this many rows: table capacity + one batch's
+# windows. The reference's bound (``models/pipeline.py:57``), measured on
+# its TPU's sort cliff, kept unchanged so that both packages pick the same
+# layout for the same run and their mid-stream checkpoints cross.
+BUCKETED_MIN_MERGE_ROWS = 25 * (1 << 20)
+# The bucketed merge's defaults, the reference's: batches routed into the
+# staging buffer between two table merges, and the slack of a bucket's
+# table rows (cb) and of its rows from one batch (m) over the uniform
+# expectation.
+BUCKET_ACCUM = 4
+BUCKET_CB_SLACK = 1.25
+BUCKET_M_SLACK = 1.5
 
 
 @contextlib.contextmanager
@@ -120,17 +149,109 @@ def _stream_step(
     return count_torch.merge_raw_keys(table, keys)
 
 
+def use_bucketed(bucketed: str, merge_rows: int) -> bool:
+    """Whether a streamed count keeps its table in hash buckets: ``"on"``,
+    ``"off"``, or ``"auto"`` (``merge_rows`` = rows of one merge, at least
+    BUCKETED_MIN_MERGE_ROWS)."""
+    if bucketed not in ("auto", "on", "off"):
+        raise ValueError(f"bucketed must be 'auto', 'on' or 'off', got "
+                         f"{bucketed!r}")
+    if bucketed == "auto":
+        return merge_rows >= BUCKETED_MIN_MERGE_ROWS
+    return bucketed == "on"
+
+
+class BucketPlan(NamedTuple):
+    """Geometry of a bucketed stream: nb buckets of cb table rows, m rows a
+    bucket from one batch, accum batches between two table merges (the
+    reference's checkpoint params of the layout, by these names)."""
+
+    nb: int
+    cb: int
+    m: int
+    accum: int
+
+
+def bucket_plan(capacity: int, merge_windows: int, *, buckets: int | None,
+                accum: int | None) -> BucketPlan:
+    """The reference's geometry for a table of ``capacity`` rows fed
+    ``merge_windows`` rows a batch: ``auto_buckets`` unless ``buckets`` is
+    given, BUCKET_ACCUM unless ``accum`` is."""
+    accum = BUCKET_ACCUM if accum is None else max(1, accum)
+    nb = buckets or auto_buckets(capacity, merge_windows, accum,
+                                 BUCKET_CB_SLACK, BUCKET_M_SLACK)
+    cb, m = bucket_geometry(capacity, merge_windows, nb=nb,
+                            cb_slack=BUCKET_CB_SLACK, m_slack=BUCKET_M_SLACK)
+    return BucketPlan(nb, cb, m, accum)
+
+
+class BucketedStream:
+    """The bucketed merge of one running table (one device, or one shard).
+
+    Each batch is only routed into its slot of a staging buffer of
+    [nb, accum * m] rows, and the staged rows merge into the table once
+    ``accum`` slots are full (the reference's accumulated staging; with
+    ``accum`` 1 every batch merges): merges aggregate associatively and a
+    key's bucket never changes, so the table equals per-batch merging.
+    Routing overflow waits in ``pending`` and folds into the table's flag
+    at the next merge."""
+
+    def __init__(self, table: BucketedTable, plan: BucketPlan):
+        self.table, self.plan, self.slot = table, plan, 0
+        nb, _, nl = table.limbs.shape
+        self.staging = table.limbs.new_full(
+            (nb, plan.accum * plan.m, nl), SENTINEL)
+        self.pending = torch.zeros((), dtype=torch.bool,
+                                   device=table.limbs.device)
+
+    @property
+    def at_boundary(self) -> bool:
+        """No routed batch waits for its merge (a snapshot may be taken)."""
+        return self.slot == 0
+
+    def add(self, keys: torch.Tensor, route_overflow=None) -> None:
+        """One batch's raw keys (sentinel rows ignored); ``route_overflow``
+        a flag of the step that produced them."""
+        p = self.plan
+        packed, over_m = route_pack_keys(keys, p.nb, p.m)
+        self.staging[:, self.slot * p.m : (self.slot + 1) * p.m] = packed
+        self.pending = self.pending | over_m
+        if route_overflow is not None:
+            self.pending = self.pending | route_overflow
+        self.slot += 1
+        if self.slot == p.accum:
+            self.flush()
+
+    def flush(self) -> None:
+        """Merge the filled staging slots into the table."""
+        if self.slot:
+            self.table = merge_packed_bucketed(
+                self.table, self.staging[:, : self.slot * self.plan.m],
+                self.pending)
+            self.pending = torch.zeros_like(self.pending)
+            self.slot = 0
+
+    def finish(self, capacity: int) -> CountTable:
+        """Flush the tail, then the flat compact-front table of
+        ``capacity`` rows."""
+        self.flush()
+        return flatten_bucketed(self.table, capacity)
+
+
 def save_stream_checkpoint(
-    table: CountTable, path: str, k: int, *, next_start: int,
-    params: dict[str, int],
+    table: CountTable | BucketedTable, path: str, k: int, *,
+    next_start: int, params: dict[str, int],
 ) -> None:
     """Mid-stream checkpoint: the carried table and the batch cursor, in
     the reference's format (``models/pipeline.py save_stream_checkpoint``:
     uint32 words, int32 counts, num_unique, overflow, next_start and the
-    run's ``params``), so either package resumes the other's. ``params``
-    pins everything the resumed table depends on; a resume refuses a
-    mismatch."""
-    words, counts, num, over = count_torch.count_table_to_numpy(table, k)
+    run's ``params``; a bucketed table as words [nb, cb, W], counts
+    [nb, cb] and num_unique [nb]), so either package resumes the other's.
+    ``params`` pins everything the resumed table depends on; a resume
+    refuses a mismatch."""
+    to_numpy = (bucketed_to_numpy if isinstance(table, BucketedTable)
+                else count_torch.count_table_to_numpy)
+    words, counts, num, over = to_numpy(table, k)
     np.savez_compressed(
         path, words=words, counts=counts, num_unique=num, overflow=over,
         next_start=np.asarray(next_start),
@@ -177,32 +298,48 @@ def is_stream_checkpoint(path: str) -> bool:
     return checkpoint_kind(path) == "stream"
 
 
-def after_stream_batch(
-    i: int, start: int, n: int, *, every: int, save, abort_after_batch: int
-) -> None:
-    """The cursor policy of both streaming counters, run after batch ``i``
-    of ``n`` in a call that began at batch ``start``: every ``every``
-    batches of the call, bar the last batch, ``save(i + 1)`` snapshots
-    (``save`` None: no snapshots); after ``abort_after_batch`` batches of
-    the call it raises (the tests' stand-in for a killed run)."""
-    done = i + 1 - start
-    if save is not None and every > 0 and done % every == 0 and i + 1 < n:
-        save(i + 1)
-    if abort_after_batch and done >= abort_after_batch:
-        raise RuntimeError(
-            f"fault injection: abort_after_batch={abort_after_batch} "
-            f"reached at batch {i + 1}/{n}"
-        )
+class StreamCursor:
+    """The cursor policy of both streaming counters, for a call that runs
+    batches ``start..n-1``: once ``every`` batches have passed since the
+    call began or since the last snapshot, the first batch after which no
+    routed batch waits for its merge (every batch of a flat merge), bar
+    the last batch, ``save(i + 1)`` snapshots (``save`` None: no
+    snapshots); after ``abort_after_batch`` batches of the call it raises
+    (the tests' stand-in for a killed run). The reference's policy, so
+    both packages snapshot at the same cursors."""
+
+    def __init__(self, start: int, n: int, *, every: int, save,
+                 abort_after_batch: int):
+        self.start, self.n, self.every, self.save = start, n, every, save
+        self.abort_after_batch, self.since = abort_after_batch, 0
+
+    def after(self, i: int, at_boundary: bool = True) -> None:
+        """Run after batch ``i``."""
+        self.since += 1
+        if (self.save is not None and self.every > 0
+                and self.since >= self.every and at_boundary
+                and i + 1 < self.n):
+            self.save(i + 1)
+            self.since = 0
+        done = i + 1 - self.start
+        if self.abort_after_batch and done >= self.abort_after_batch:
+            raise RuntimeError(
+                f"fault injection: abort_after_batch={self.abort_after_batch}"
+                f" reached at batch {i + 1}/{self.n}"
+            )
 
 
 def load_stream_checkpoint(
     path: str, device: torch.device | str
-) -> tuple[CountTable, int, dict[str, int]]:
-    """-> (carried table on ``device``, next_start, params)."""
+) -> tuple[CountTable | BucketedTable, int, dict[str, int]]:
+    """-> (carried table on ``device``, next_start, params); a table saved
+    in the bucketed layout comes back as a BucketedTable."""
     require_checkpoint_kind(path, "stream")
     table_keys = ("words", "counts", "num_unique", "overflow")
     with np.load(path) as z:
-        table = count_torch.count_table_from_numpy(
+        from_numpy = (bucketed_from_numpy if z["words"].ndim == 3
+                      else count_torch.count_table_from_numpy)
+        table = from_numpy(
             *(z[name] for name in table_keys), device=resolve_device(device)
         )
         params = {
@@ -223,7 +360,10 @@ def count_reads_device(
     stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None,
     abort_after_batch: int = 0,
+    bucketed: str = "auto",
     _plain_upload: bool = False,
+    _buckets: int | None = None,
+    _bucket_accum: int | None = None,
 ) -> CountTable:
     """Count canonical k-mers of [B, L] reads on ``device``.
 
@@ -238,13 +378,21 @@ def count_reads_device(
     batches ahead); on the CPU, or with ``_plain_upload`` (the on-card
     checks' yardstick), each batch is moved by a plain ``.to(device)``.
 
-    stream_checkpoint + stream_checkpoint_every=N: every N streamed
-    batches, snapshot the carried table and the batch cursor to
-    ``stream_checkpoint``; resume_stream_from continues from such a
-    snapshot (written by either package) to the same table as an
-    uninterrupted run. The snapshot's k, batch, capacity and read count
-    must match this run's. abort_after_batch=n raises after n batches of
-    this call (the tests' stand-in for a killed run).
+    bucketed: the streaming table's layout, ``"auto"`` (hash buckets once
+    capacity + one batch's windows reach BUCKETED_MIN_MERGE_ROWS), ``"on"``
+    or ``"off"``; the result is the same table either way. In the bucketed
+    layout each batch is routed to its buckets and the routed batches
+    merge every BUCKET_ACCUM batches (``BucketedStream``); ``_buckets`` and
+    ``_bucket_accum`` set the bucket count and that cadence (for tests).
+
+    stream_checkpoint + stream_checkpoint_every=N: once N streamed batches
+    have passed (in the bucketed layout: at the next merge), snapshot the
+    carried table and the batch cursor to ``stream_checkpoint``;
+    resume_stream_from continues from such a snapshot (written by either
+    package) to the same table as an uninterrupted run. The snapshot's k,
+    batch, capacity, read count and layout must match this run's.
+    abort_after_batch=n raises after n batches of this call (the tests'
+    stand-in for a killed run).
     """
     device = resolve_device(device)
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
@@ -266,12 +414,19 @@ def count_reads_device(
     capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
     batch = cfg.batch_reads
     starts = range(0, b, batch)
-    # everything the carried table depends on; the reference's keys, with
-    # its flat merge (stride 1, not bucketed)
+    merge_windows = batch * (length - cfg.k + 1)
+    # everything the carried table depends on: the reference's keys, with
+    # its merge stride 1
     ck_params = {
         "k": cfg.k, "batch": batch, "capacity": capacity, "stride": 1,
-        "total_reads": b, "bucketed": 0,
+        "total_reads": b,
+        "bucketed": int(use_bucketed(bucketed, capacity + merge_windows)),
     }
+    plan = None
+    if ck_params["bucketed"]:
+        plan = bucket_plan(capacity, merge_windows, buckets=_buckets,
+                           accum=_bucket_accum)
+        ck_params.update(plan._asdict())
     table = None
     start_idx = 0
     if resume_stream_from is not None:
@@ -282,13 +437,21 @@ def count_reads_device(
             raise ValueError(
                 f"mid-stream checkpoint mismatch: saved {got}, this run has "
                 f"{ck_params}; resume requires identical k/batch/capacity/"
-                "read set"
+                "read set/layout"
             )
         start_idx = next_start // batch
+    stream = None
+    if plan is not None:
+        stream = BucketedStream(
+            table if table is not None else empty_bucketed(
+                plan.nb, plan.cb, n_limbs(cfg.k), device),
+            plan,
+        )
+
     def save(next_batch):
         save_stream_checkpoint(
-            table, stream_checkpoint, cfg.k, next_start=starts[next_batch],
-            params=ck_params,
+            table if stream is None else stream.table, stream_checkpoint,
+            cfg.k, next_start=starts[next_batch], params=ck_params,
         )
 
     def fill(i, planes):
@@ -296,6 +459,11 @@ def count_reads_device(
         planes[0][: rows.shape[0]] = rows
         return rows.shape[0]
 
+    cursor = StreamCursor(
+        start_idx, len(starts), every=stream_checkpoint_every,
+        save=None if stream_checkpoint is None else save,
+        abort_after_batch=abort_after_batch,
+    )
     ring = UploadRing(
         [(device, min(batch, b))], [length], depth=UPLOAD_PREFETCH,
         pipelined=False if _plain_upload else None,
@@ -303,17 +471,18 @@ def count_reads_device(
     with ring:
         for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
             packed, inv = pack_on_device(codes, has_invalid)
-            if table is None:
+            if stream is not None:
+                stream.add(extract_canonical_flat(packed, length, cfg.k,
+                                                  inv_bits=inv))
+            elif table is None:
                 table = _count_batch(packed, length, cfg.k, inv,
                                      out_cap=capacity)
             else:
                 table = _stream_step(table, packed, length, cfg.k, inv)
             # the table after batch i, whatever is already uploaded
-            after_stream_batch(
-                i, start_idx, len(starts), every=stream_checkpoint_every,
-                save=None if stream_checkpoint is None else save,
-                abort_after_batch=abort_after_batch,
-            )
+            cursor.after(i, stream is None or stream.at_boundary)
+    if stream is not None:
+        return stream.finish(capacity)
     if table is None:  # no reads at all
         table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
     return table
@@ -467,6 +636,7 @@ def assemble_torch(
     return_graph: bool = False,
     emit: str = "unitigs",
     stream_checkpoint_every: int = 0,
+    bucketed: str = "auto",
 ):
     """End-to-end single-device assembly: reads -> canonical contigs.
 
@@ -476,6 +646,7 @@ def assemble_torch(
     stream_checkpoint_every=N > 0 the streaming counter also snapshots
     its table and batch cursor to ``checkpoint`` every N batches;
     resume_from detects such a snapshot and continues counting from it.
+    bucketed: the streaming table's layout (``count_reads_device``).
     emit: ``"unitigs"`` stops contigs at junctions, ``"euler"`` spells
     Eulerian walks. Contigs equal ``assemble_tpu``'s and
     ``assemble_oracle``'s.
@@ -505,6 +676,7 @@ def assemble_torch(
                 ),
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
+                bucketed=bucketed,
             )
         # the reads in, the keys out and in again to the sort; the
         # reference's figure has 4-byte words, the port's keys are

@@ -1,4 +1,4 @@
-"""Unitig compression by pointer doubling (exact path) and spelling.
+"""Unitig compression by pointer doubling and spelling.
 
 Counterpart of ``genome_assembler_tpu/ops/unitig_jax.py``:
 
@@ -8,14 +8,17 @@ Counterpart of ``genome_assembler_tpu/ops/unitig_jax.py``:
      node equals suffix(e) iff that node has outdeg == indeg == 1, found
      by one sort of tagged prefix/suffix node keys (``_link_sortjoin``);
   3. chain heads and offsets by pointer doubling over the predecessor
-     pointers; pure cycles break at their smallest edge id;
+     pointers; pure cycles break at their smallest edge id. Edge tables
+     of at least ``SAMPLED_MIN_ROWS`` rows take the reference's sampled
+     two-level ranking (``_rank_sampled``: doubling to the nearest ruler,
+     then over the E/32 contracted rulers), then its cycle-aware variant
+     (``_rank_sampled_cyclic``), and the exact pass (``_resolve_exact``)
+     only where both refuse; smaller tables take the exact pass;
   4. ``spell_arrays`` reduces the edge table to the compact per-unitig
      transfer set that the host spells.
 
-uid, pos, cov, valid and ``num_unitigs`` equal the reference bit for bit.
-The reference switches to a sampled two-level ranking at
-``SAMPLED_MIN_ROWS`` edges; that ranking is bit-identical to the exact
-one, so the port runs the exact path at every size.
+uid, pos, cov, valid and ``num_unitigs`` equal the reference bit for bit,
+and so do every ranking's (head, rank, ok). Ids and distances are int64.
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ import numpy as np
 import torch
 
 from ..utils.keys import SENTINEL, is_sentinel
-from .count_torch import CountTable, compact_front_sorted, sort_by_words
+from .count_torch import (
+    CountTable,
+    compact_front_sorted,
+    sort_by_words,
+    take_rows,
+)
 from .words_torch import (
     prefix_node,
     revcomp_words,
@@ -69,7 +77,9 @@ def _doubling(prev: torch.Tensor, steps: int, track: str = "dist"):
     sync per round). "dist" has converged when every gathered distance is
     0 (every ancestor is a head); a pure cycle never converges, so its
     distances double to exactly 2^steps, which ``_rank_pass`` detects.
-    Returns (ancestor, tracked).
+    Returns (ancestor, tracked, changed, rounds): ``changed`` is True iff
+    the cap ran out before a fixpoint (a cycle, or a chain longer than
+    2^steps), the sampled passes' fallback trigger.
     """
     n = prev.shape[0]
     ids = torch.arange(n, device=prev.device)
@@ -82,7 +92,7 @@ def _doubling(prev: torch.Tensor, steps: int, track: str = "dist"):
     changed = True
     i = 0
     while i < steps and changed:
-        g = state[state[:, 0]]
+        g = take_rows(state, state[:, 0])
         if track == "dist":
             new = torch.stack([g[:, 0], state[:, 1] + g[:, 1]], dim=1)
             changed = bool((g[:, 1] != 0).any())
@@ -93,7 +103,7 @@ def _doubling(prev: torch.Tensor, steps: int, track: str = "dist"):
             changed = bool((new != state).any())
         state = new
         i += 1
-    return state[:, 0], state[:, 1]
+    return state[:, 0], state[:, 1], changed, i
 
 
 def _build_edges(table: CountTable, k: int):
@@ -186,11 +196,14 @@ def _steps_for(e: int) -> int:
     return max(1, int(np.ceil(np.log2(max(e, 2)))) + 1)
 
 
-def _rank_pass(prev: torch.Tensor):
+def _rank_pass(prev: torch.Tensor, rounds: dict | None = None):
     """One doubling pass: (ancestor, distance, any_cycle). Pure-cycle
-    distances reach exactly 2^steps; chain distances stay below it."""
+    distances reach exactly 2^steps; chain distances stay below it.
+    ``rounds["exact"]`` (if given) adds the rounds run."""
     steps = _steps_for(prev.shape[0])
-    anc, dist = _doubling(prev, steps, track="dist")
+    anc, dist, _, n = _doubling(prev, steps, track="dist")
+    if rounds is not None:
+        rounds["exact"] = rounds.get("exact", 0) + n
     return anc, dist, bool((dist >= (1 << steps)).any())
 
 
@@ -199,7 +212,7 @@ def _break_cycles(prev: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     turned into a head."""
     e = prev.shape[0]
     ids = torch.arange(e, device=prev.device)
-    anc, mn = _doubling(prev, _steps_for(e), track="min")
+    anc, mn, _, _ = _doubling(prev, _steps_for(e), track="min")
     in_cycle = valid & (prev[anc] >= 0)
     return torch.where(in_cycle & (ids == mn), -1, prev)
 
@@ -211,20 +224,191 @@ def _finalize_chains(prev, anc, dist, valid):
     return uid.to(torch.int32), dist.to(torch.int32), heads.sum()
 
 
-def _resolve_exact(prev: torch.Tensor, valid: torch.Tensor):
+# The sampled two-level ranking (``unitig_jax.py:320-553``). Every
+# SAMPLE_STRIDE-th edge id is a ruler; edge ids are sort positions,
+# unrelated to chain order, so the gaps between rulers along a chain are
+# about SAMPLE_STRIDE * ln(E / SAMPLE_STRIDE), far below
+# 2^(SAMPLED_MAX_ROUNDS - 1). The reference's value of every constant, so
+# both packages take the same pass on the same table.
+SAMPLE_STRIDE = 32
+SAMPLED_MAX_ROUNDS = 16
+# edge tables below this take the exact pass (tests set it to 0 to force
+# the sampled passes on tiny graphs)
+SAMPLED_MIN_ROWS = 1 << 21
+
+
+def _contracted_doubling(state: torch.Tensor, steps: int, combine: str):
+    """Doubling over the contracted ruler list: row t is ruler t*S's
+    (ancestor id, carried value). An ancestor that is a ruler is followed
+    to its row (row gid // S, on one device and for the sharded graph's
+    gathered list alike); any other ancestor is a real head and the row
+    is done. combine "add" sums the distances, "min" keeps the running
+    minimum. Runs exactly ``steps`` rounds with no host read (a fixpoint
+    stays fixed, so the rows are those of a loop that stops at it).
+    Returns (state, changed): ``changed``, a 0-d bool tensor, says whether
+    the last round still changed a row."""
+    s = SAMPLE_STRIDE
+    changed = torch.ones((), dtype=torch.bool, device=state.device)
+    for _ in range(steps):
+        canc, cval = state[:, 0], state[:, 1]
+        is_r = canc % s == 0
+        g = take_rows(state, torch.where(is_r, canc // s, 0))
+        val = cval + g[:, 1] if combine == "add" else torch.minimum(cval, g[:, 1])
+        new = torch.stack(
+            [torch.where(is_r, g[:, 0], canc), torch.where(is_r, val, cval)],
+            dim=1,
+        )
+        changed = (new != state).any()
+        state = new
+    return state, changed
+
+
+def _phase_a(prev: torch.Tensor):
+    """Phase A of the sampled ranking: rulers cut into heads, then capped
+    doubling. Every lane ends at its nearest upstream stop (a ruler or a
+    real head) with the distance to it. -> (anc, dist, changed, rounds)."""
+    e = prev.shape[0]
+    ids = torch.arange(e, device=prev.device)
+    prev2 = torch.where(ids % SAMPLE_STRIDE == 0, -1, prev)
+    return _doubling(prev2, min(SAMPLED_MAX_ROUNDS, _steps_for(e)), "dist")
+
+
+def _csteps(n_r: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(n_r, 2)))) + 1)
+
+
+def _phases_bc(prev: torch.Tensor, anc: torch.Tensor, dist: torch.Tensor):
+    """Phases B + C (``unitig_jax._phases_bc``): contract the ruler list,
+    double over it, then give every lane its stop's contracted rank in one
+    full-size gather. -> (head, rank, ok, rounds of phase B).
+
+    Ruler t's predecessor pt chains to stop anc[pt] at distance dist[pt]
+    + 1; a ruler that is a real head is its own stop at distance 0. ok is
+    False if the contracted list still changed at its cap, or if a
+    finished row's ancestor is a ruler that still has a predecessor (a
+    cycle threading the rulers: the reference's wrap-free check)."""
+    e = prev.shape[0]
+    s = SAMPLE_STRIDE
+    n_r = -(-e // s)
+    r_ids = torch.arange(n_r, device=prev.device) * s
+    pt = prev[r_ids]
+    pt_c = pt.clamp(min=0)
+    a0 = torch.where(pt >= 0, anc[pt_c], r_ids)
+    d0 = torch.where(pt >= 0, dist[pt_c] + 1, 0)
+    rounds = _csteps(n_r)
+    cstate, changed_b = _contracted_doubling(
+        torch.stack([a0, d0], dim=1), rounds, "add")
+    fa = cstate[:, 0]
+    cycle_b = ((fa % s == 0) & (prev[fa] >= 0)).any()
+    is_r_a = anc % s == 0
+    g = take_rows(cstate, torch.where(is_r_a, anc // s, 0))
+    head = torch.where(is_r_a, g[:, 0], anc)
+    rank = torch.where(is_r_a, dist + g[:, 1], dist)
+    return head, rank, not bool(changed_b | cycle_b), rounds
+
+
+def _rank_sampled(prev: torch.Tensor, rounds: dict | None = None):
+    """Sampled two-level ranking (``unitig_jax._rank_sampled``): (head,
+    rank, ok). Phase A doubles only to the nearest ruler (capped at
+    SAMPLED_MAX_ROUNDS), phase B over the E/32 contracted rulers, phase C
+    combines. Bit-identical to the exact pass on acyclic graphs; ok False
+    (phase A hit its cap: a cycle without a ruler, or a huge gap; or a
+    cycle through the rulers) means the caller must take another pass.
+    ``rounds`` (if given) receives the rounds of phases A and B."""
+    anc, dist, changed_a, ra = _phase_a(prev)
+    head, rank, ok_bc, rb = _phases_bc(prev, anc, dist)
+    if rounds is not None:
+        rounds.update(a=ra, b=rb)
+    return head, rank, not changed_a and ok_bc
+
+
+def _rank_sampled_cyclic(prev: torch.Tensor, rounds: dict | None = None):
+    """Sampled ranking of a graph with cycles
+    (``unitig_jax._rank_sampled_cyclic``): (head, rank, ok, prev_broken).
+
+    Phase A as usual; the smallest id whose stop is each ruler (one
+    scatter-min); doubling over the contracted list carrying the running
+    minimum for a fixed ceil(log2(E/32)) + 1 rounds, after which every
+    ruler on a cycle holds the cycle's smallest edge id; that edge becomes
+    a head; then phases A-C again on the broken graph. ok is False iff a
+    cycle holds no ruler (its lanes never resolve). The caller finalizes
+    against ``prev_broken``. ``rounds`` (if given) receives the rounds of
+    both phase-A passes ("a"), of the minimum's doubling ("d") and of the
+    second phase B ("b")."""
+    e = prev.shape[0]
+    s = SAMPLE_STRIDE
+    dev = prev.device
+    ids = torch.arange(e, device=dev)
+    anc, _, changed_a, ra = _phase_a(prev)
+    # the segment minimum of every ruler's lanes (the ruler's own id is
+    # among them; lanes whose stop is a real head go to the dump slot)
+    n_r = -(-e // s)
+    seg = torch.full((n_r + 1,), e, dtype=torch.int64, device=dev)
+    seg.scatter_reduce_(0, torch.where(anc % s == 0, anc // s, n_r), ids,
+                        reduce="amin")
+    r_ids = torch.arange(n_r, device=dev) * s
+    pt = prev[r_ids]
+    a0 = torch.where(pt >= 0, anc[pt.clamp(min=0)], r_ids)
+    csteps = _csteps(n_r)
+    dstate, _ = _contracted_doubling(
+        torch.stack([a0, seg[:n_r]], dim=1), csteps, "min")
+    fa = dstate[:, 0]
+    # a ruler is on a cycle iff its final ancestor is a ruler that still
+    # has a predecessor (phase B's wrap-free test)
+    is_cyc_r = (fa % s == 0) & (prev[fa] >= 0)
+    is_r_a = anc % s == 0
+    slot_a = torch.where(is_r_a, anc // s, 0)
+    breaks = is_r_a & is_cyc_r[slot_a] & (ids == dstate[:, 1][slot_a])
+    prev3 = torch.where(breaks, -1, prev)
+    anc2, dist2, changed_a2, ra2 = _phase_a(prev3)
+    head, rank, ok_bc, rb = _phases_bc(prev3, anc2, dist2)
+    if rounds is not None:
+        rounds.update(a=ra + ra2, d=csteps, b=rb)
+    return head, rank, not changed_a and not changed_a2 and ok_bc, prev3
+
+
+def _resolve_exact(prev: torch.Tensor, valid: torch.Tensor,
+                   rounds: dict | None = None):
     """Exact path: plain doubling + adaptive cycle break + finalize."""
-    anc, dist, has_cycle = _rank_pass(prev)
+    anc, dist, has_cycle = _rank_pass(prev, rounds)
     if has_cycle:
         prev = _break_cycles(prev, valid)
-        anc, dist, _ = _rank_pass(prev)
+        anc, dist, _ = _rank_pass(prev, rounds)
     return _finalize_chains(prev, anc, dist, valid)
 
 
-def compress_unitigs_device(table: CountTable, k: int) -> DeviceUnitigs:
+def _resolve_chains(prev: torch.Tensor, valid: torch.Tensor, *,
+                    exact: bool = False, rounds: dict | None = None):
+    """(uid, pos, num_unitigs) by the reference's choice of pass
+    (``unitig_jax.py:865-885``): at SAMPLED_MIN_ROWS rows or more the
+    sampled pass, then the cyclic one, then the exact pass, each taken
+    only where the one before refused; below, or with ``exact``, the exact
+    pass. ``rounds["pass"]`` (if given) names the pass that answered."""
+    rounds = {} if rounds is None else rounds
+    if not exact and prev.shape[0] >= SAMPLED_MIN_ROWS:
+        head, rank, ok = _rank_sampled(prev, rounds)
+        if ok:
+            rounds["pass"] = "sampled"
+            return _finalize_chains(prev, head, rank, valid)
+        head, rank, ok, prev3 = _rank_sampled_cyclic(prev, rounds)
+        if ok:
+            rounds["pass"] = "cyclic"
+            return _finalize_chains(prev3, head, rank, valid)
+    rounds["pass"] = "exact"
+    return _resolve_exact(prev, valid, rounds)
+
+
+def compress_unitigs_device(table: CountTable, k: int, *,
+                            rounds: dict | None = None,
+                            _exact: bool = False) -> DeviceUnitigs:
     """Filtered canonical CountTable -> unitig chain assignment.
 
     Requires odd k (no palindromic k-mers, so the both-strand edge set has
-    exactly two distinct directed edges per canonical k-mer).
+    exactly two distinct directed edges per canonical k-mer). The ranking
+    is the reference's choice (``_resolve_chains``). rounds: a dict that
+    receives the pass taken and its doubling rounds. ``_exact`` forces the
+    exact pass (for the tests and the on-card check that hold both passes
+    equal).
     """
     if k % 2 == 0:
         raise ValueError("device unitig compression requires odd k")
@@ -240,7 +424,7 @@ def compress_unitigs_device(table: CountTable, k: int) -> DeviceUnitigs:
         )
     edge_limbs, covs, valid = _build_edges(table, k)
     prev = _link_sortjoin(edge_limbs, valid, k)
-    uid, pos, num = _resolve_exact(prev, valid)
+    uid, pos, num = _resolve_chains(prev, valid, exact=_exact, rounds=rounds)
     return DeviceUnitigs(
         edge_limbs=edge_limbs,
         cov=covs,

@@ -12,11 +12,19 @@ about 1/D (``peak_rows_per_device``):
      node records to the node's owner (a salted hash of the node), which
      runs the single-device join core (``unitig_torch.join_scan``) and
      routes (successor, predecessor) pairs to the successor's owner;
-  3. exact ranking by distributed pointer doubling: each round dedupes
-     the shard's ancestor targets, sends the unique queries to their
-     owners, answers with a local row gather and sends the answers back;
-     the loop stops once no shard changed (one host read a round). A pure
-     cycle breaks at its smallest GLOBAL edge id;
+  3. ranking over global ids. Every SAMPLE_STRIDE-th global id is a
+     ruler, and the sampled two-level pass (the reference's
+     ``rank_sampled``) doubles only to the nearest ruler: each round
+     dedupes the shard's ancestor targets, sends the unique queries to
+     their owners, answers with a local row gather and sends the answers
+     back, and the loop stops once no shard changed (one host read a
+     round). One more query round links each ruler to the stop above its
+     predecessor; the E/STRIDE contracted list is gathered once onto
+     every shard and ranked there with no communication a round. So the
+     mesh pays ceil(log2(largest ruler gap)) query rounds, not
+     ceil(log2(global E)). Where it refuses (a cycle, or a gap past its
+     round cap) the exact pass runs: doubling over the whole global
+     list, and a pure cycle breaks at its smallest GLOBAL edge id;
   4. global numbering: head counts are gathered and offset, and one more
      query round fetches uid(ancestor) for every edge;
   5. spelling (``make_sharded_spell``): per-unitig stats go to the
@@ -30,9 +38,8 @@ local shards (all D in one process; list position s is global shard
 (``parallel/mesh.py``), so across processes every host read is of a
 value reduced over all D shards; ids are int64 with the
 reference's ``BIG`` pads and masks. Per-shard outputs equal the
-reference's at the same D bit for bit. The reference takes a sampled
-two-level ranking at most sizes; it is bit-identical to the exact pass,
-which the port runs at every size.
+reference's at the same D bit for bit, and so does the choice between the
+sampled and the exact pass.
 """
 
 from __future__ import annotations
@@ -59,7 +66,14 @@ from ..ops.count_torch import (
     take_rows,
 )
 from ..ops.hash_torch import limbs_to_key_words, mix_words
-from ..ops.unitig_torch import _build_edges, join_scan
+from ..ops.unitig_torch import (
+    SAMPLE_STRIDE,
+    SAMPLED_MAX_ROUNDS,
+    _build_edges,
+    _contracted_doubling,
+    _csteps,
+    join_scan,
+)
 from ..ops.words_torch import (
     prefix_node,
     shift_left_words,
@@ -219,9 +233,12 @@ class ShardedUnitigs(NamedTuple):
     last_base: uint8; heads: bool; edge_limbs: [K, n_limbs] sorted edge
     keys. num_unitigs and overflow (the cap bitmask, ``OVERFLOW_CAPS``)
     are host ints; query_rounds counts the query rounds run (doubling,
-    cycle break and numbering), doubling_rounds those of the doubling
-    loops alone and doubling_seconds their wall time (each ends in the
-    loop's one host read, so the device's work is inside).
+    the sampled pass's ruler links, cycle break and numbering),
+    doubling_rounds those of the doubling loops alone and doubling_seconds
+    their wall time (each ends in the loop's one host read, so the
+    device's work is inside). rank_pass names the ranking that answered
+    ("sampled" or "exact"); contracted_rounds counts the sampled pass's
+    local rounds over the gathered ruler list (no communication).
     """
 
     valid: list[torch.Tensor]
@@ -236,12 +253,14 @@ class ShardedUnitigs(NamedTuple):
     query_rounds: int
     doubling_rounds: int = 0
     doubling_seconds: float = 0.0
+    rank_pass: str = "exact"
+    contracted_rounds: int = 0
 
 
 class _ShardedCompress:
     """The sharded compression step for one (mesh, k, c_shard)."""
 
-    def __init__(self, mesh: Mesh, k: int, c_shard: int):
+    def __init__(self, mesh: Mesh, k: int, c_shard: int, exact: bool = False):
         d = axis_size(mesh)
         self.mesh, self.k, self.d = mesh, k, d
         self.k_cap = k_cap = 2 * c_shard  # per-shard directed-edge rows
@@ -254,6 +273,10 @@ class _ShardedCompress:
         self.cap_pair = _pair_cap(k_cap, d)
         self.cap_query = _query_cap(k_cap, d)
         self.steps = _round_cap(d, k_cap)
+        # the reference's rule: rulers are global ids % SAMPLE_STRIDE, so
+        # every shard's K rows must hold whole stride blocks
+        self.use_sampled = (not exact and k_cap % SAMPLE_STRIDE == 0
+                            and k_cap >= 4 * SAMPLE_STRIDE)
         self.my_gid = [
             s * k_cap + torch.arange(k_cap, device=dev)
             for s, dev in zip(mesh.local_shards, mesh.devices)
@@ -355,12 +378,15 @@ class _ShardedCompress:
         self.rounds += 1
         return out, ovf
 
-    def _double(self, prev, valid, track: str):
+    def _double(self, prev, valid, track: str, max_rounds: int | None = None):
         """Distributed pointer doubling: per shard (ancestor, tracked,
-        overflow). track "dist" carries the distance from the head, "min"
-        the minimum global id on the ancestor path. At most ``steps``
-        rounds; the loop stops once a round changed nothing on any shard
-        (one host read a round)."""
+        overflow), and whether the round cap ran out before a fixpoint
+        (a host bool reduced over every shard). track "dist" carries the
+        distance from the head, "min" the minimum global id on the
+        ancestor path. At most ``max_rounds`` (default ``steps``) rounds;
+        the loop stops once a round changed nothing on any shard (one host
+        read a round)."""
+        rounds = self.steps if max_rounds is None else max_rounds
         states = []
         for s, p in enumerate(prev):
             anc = torch.where(p >= 0, p, self.my_gid[s])
@@ -371,7 +397,7 @@ class _ShardedCompress:
                for p in prev]
         changed, i = True, 0
         t0 = time.perf_counter()
-        while i < self.steps and changed:
+        while i < rounds and changed:
             ans, o = self._query_round(states, [st[:, 0] for st in states],
                                        valid)
             flags = []
@@ -393,18 +419,75 @@ class _ShardedCompress:
             i += 1
         self.doubling_rounds += i
         self.doubling_seconds += time.perf_counter() - t0
-        return [st[:, 0] for st in states], [st[:, 1] for st in states], ovf
+        return ([st[:, 0] for st in states], [st[:, 1] for st in states], ovf,
+                changed)
+
+    def _rank_sampled(self, prev, valid):
+        """The sampled two-level pass (the reference's ``rank_sampled``):
+        per shard (head, rank, overflow), and ok, a host bool reduced over
+        every shard; ok False requires the exact pass.
+
+        Phase A: rulers cut into heads, doubling capped at
+        SAMPLED_MAX_ROUNDS. Phase B: one query round fetches the stop and
+        distance above each ruler's predecessor; the [D*K/STRIDE, 2]
+        contracted list is gathered once onto every shard and doubled
+        there for a fixed number of rounds (a fixpoint stays fixed, so the
+        rows equal the reference's early-exit loop's) with no
+        communication; its row of a ruler gid is gid // STRIDE. Phase C:
+        each lane adds its stop's contracted rank."""
+        s = SAMPLE_STRIDE
+        prev2 = [torch.where(g % s == 0, -1, p)
+                 for p, g in zip(prev, self.my_gid)]
+        anc, dist, ovf_a, changed_a = self._double(
+            prev2, valid, "dist",
+            max_rounds=min(SAMPLED_MAX_ROUNDS, self.steps))
+        if changed_a:  # the same on every rank: refuse before phase B
+            return None, None, None, False
+        pts = [p[::s] for p in prev]  # rulers sit at slots 0, s, 2s, ...
+        pans, ovf_b = self._query_round(
+            [torch.stack([a, ds], dim=1) for a, ds in zip(anc, dist)],
+            pts, [pt >= 0 for pt in pts])
+        local = [
+            torch.stack([torch.where(pt >= 0, pa[:, 0], g[::s]),
+                         torch.where(pt >= 0, pa[:, 1] + 1, 0)], dim=1)
+            for pt, pa, g in zip(pts, pans, self.my_gid)
+        ]
+        gathered = all_gather_replicated(self.mesh, local)
+        csteps = _csteps(gathered[0].shape[0])
+        ranked = {}  # one copy of the replicated list's ranking a device
+        refused = []
+        head, rank = [], []
+        for c0, a, ds in zip(gathered, anc, dist):
+            key = (c0.device, c0.data_ptr())
+            if key not in ranked:
+                c, changed_b = _contracted_doubling(c0, csteps, "add")
+                # a finished row's ancestor is a non-ruler real head or a
+                # contracted head (initial distance 0); a ruler ancestor
+                # that is neither closes a cycle through the rulers
+                fa = c[:, 0]
+                fa_r = fa % s == 0
+                chead = c0[torch.where(fa_r, fa // s, 0), 1] == 0
+                ranked[key] = c, changed_b | (fa_r & ~chead).any()
+            c, bad = ranked[key]
+            refused.append(bad)
+            is_r_a = a % s == 0
+            g = take_rows(c, torch.where(is_r_a, a // s, 0))
+            head.append(torch.where(is_r_a, g[:, 0], a))
+            rank.append(torch.where(is_r_a, ds + g[:, 1], ds))
+        self.contracted_rounds += csteps
+        ok = not bool(any_reduce(self.mesh, refused))
+        return head, rank, [x | y for x, y in zip(ovf_a, ovf_b)], ok
 
     def _exact_rank(self, prev, valid):
         """Doubling + adaptive cycle break at the minimum GLOBAL id:
         (prev, ancestor, distance, overflow) per shard."""
-        anc, dist, ovf = self._double(prev, valid, "dist")
+        anc, dist, ovf, _ = self._double(prev, valid, "dist")
         # a pure cycle's distances double to exactly 2^steps
         thresh = 1 << min(self.steps, 29)
         if bool(any_reduce(self.mesh, [
             (v & (ds >= thresh)).any() for v, ds in zip(valid, dist)
         ])):
-            _, mn, o_min = self._double(prev, valid, "min")
+            _, mn, o_min, _ = self._double(prev, valid, "min")
             # in a cycle: my ancestor still has a predecessor
             pans, o_q = self._query_round(
                 [torch.stack([p, p], dim=1) for p in prev], anc, valid
@@ -413,14 +496,14 @@ class _ShardedCompress:
                 torch.where(v & (pa[:, 0] >= 0) & (g == m), -1, p)
                 for p, v, pa, g, m in zip(prev, valid, pans, self.my_gid, mn)
             ]
-            anc, dist, o_d = self._double(prev, valid, "dist")
+            anc, dist, o_d, _ = self._double(prev, valid, "dist")
             ovf = [a | b | c | e for a, b, c, e in zip(ovf, o_min, o_q, o_d)]
         return prev, anc, dist, ovf
 
     def __call__(self, tables: list[CountTable]) -> ShardedUnitigs:
         """Per-shard filtered tables of c_shard rows (sorted keys at the
         front, sentinel padding) -> :class:`ShardedUnitigs`."""
-        self.rounds = 0
+        self.rounds = self.contracted_rounds = 0
         self.doubling_rounds, self.doubling_seconds = 0, 0.0
         mesh = self.mesh
         edges, covs, valid = [], [], []
@@ -430,7 +513,11 @@ class _ShardedCompress:
             covs.append(c)
             valid.append(v)
         prev, ovf_join, ovf_pair = self._link(edges, valid)
-        prev, anc, dist, ovf_rank = self._exact_rank(prev, valid)
+        ok = False
+        if self.use_sampled:
+            anc, dist, ovf_rank, ok = self._rank_sampled(prev, valid)
+        if not ok:
+            prev, anc, dist, ovf_rank = self._exact_rank(prev, valid)
 
         # global unitig numbering
         heads = [v & (p == -1) for v, p in zip(valid, prev)]
@@ -466,14 +553,21 @@ class _ShardedCompress:
             query_rounds=self.rounds,
             doubling_rounds=self.doubling_rounds,
             doubling_seconds=self.doubling_seconds,
+            rank_pass="sampled" if ok else "exact",
+            contracted_rounds=self.contracted_rounds,
         )
 
 
-def make_sharded_compress(mesh: Mesh, k: int, c_shard: int):
+def make_sharded_compress(mesh: Mesh, k: int, c_shard: int, *,
+                          _exact: bool = False):
     """The sharded compression step: fn(per-shard filtered tables) ->
     :class:`ShardedUnitigs`. Routing overflow is flagged in its bitmask,
-    never silent."""
-    return _ShardedCompress(mesh, k, c_shard)
+    never silent. The ranking is the reference's choice: the sampled pass
+    where K = 2 * c_shard is a multiple of SAMPLE_STRIDE (and at least
+    4 x it), the exact pass where that refuses or K is not; ``_exact``
+    forces the exact pass (for the tests and the on-card check that hold
+    both passes equal on one mesh)."""
+    return _ShardedCompress(mesh, k, c_shard, exact=_exact)
 
 
 def _segment_stats(uid_col, cnt_col, cov_col):

@@ -32,6 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 
 CLI_ENTRY = ("-m", "genome_assembler_tpu_torch.cli")
+# Launches tried when rank 0's store finds its free port taken meanwhile
+# (another socket may grab it between the probe and the rank's start)
+PORT_ATTEMPTS = 3
 
 
 @dataclass
@@ -93,8 +96,10 @@ def spawn(
     it is appended to ``argv`` as ``--device``. entry: the interpreter's
     arguments before ``argv`` (default: the ``ga-torch`` command line). On
     the first rank that exits non-zero, or once ``timeout_s`` have passed,
-    every rank still running is killed. Returns the exit codes and the
-    outputs; no child is left running.
+    every rank still running is killed. A launch whose store port was
+    taken before rank 0 could listen on it (``EADDRINUSE``) starts again
+    on another port, up to PORT_ATTEMPTS launches. Returns the exit codes
+    and the outputs; no child is left running.
     """
     if world_size < 1:
         raise ValueError(f"spawn: world_size {world_size}")
@@ -103,13 +108,23 @@ def spawn(
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [pkg_root] + [p for p in [env.get("PYTHONPATH")] if p])
-    env.update(WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1",
-               MASTER_PORT=str(free_port()))
+    env.update(WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1")
     if device == "cpu":
         # the ranks share this machine's cores
         env.setdefault("OMP_NUM_THREADS",
                        str(max(1, (os.cpu_count() or 1) // world_size)))
     cmd = [sys.executable, *entry, *argv, "--device", device]
+    for _ in range(PORT_ATTEMPTS):
+        res = _run_ranks(cmd, dict(env, MASTER_PORT=str(free_port())),
+                         world_size, timeout_s, cwd)
+        if res.ok or not any("EADDRINUSE" in err for err in res.stderr):
+            break
+    return res
+
+
+def _run_ranks(cmd, env, world_size: int, timeout_s: float,
+               cwd: str | None) -> SpawnResult:
+    """One launch of ``world_size`` ranks of ``cmd`` (see ``spawn``)."""
     t0 = time.perf_counter()
     procs, files = [], []
     timed_out = False

@@ -1,8 +1,7 @@
 """Hash-sharded counting over a mesh of D shards, and the assembly on top.
 
-Counterpart of ``genome_assembler_tpu/parallel/pipeline.py`` (the flat
-per-shard merge; no merge stride, no bucketed merge). Per shard and read
-batch:
+Counterpart of ``genome_assembler_tpu/parallel/pipeline.py`` (no merge
+stride). Per shard and read batch:
 
   1. extract + canonicalize the shard's packed reads (the CUDA kernel on
      the card, ``ops.kmer_torch.extract_canonical_flat``);
@@ -12,7 +11,11 @@ batch:
   3. pack the rows into a fixed [D, bucket_cap, ...] send buffer
      (``bucket_pack``; overflow is flagged, never silent) and exchange the
      buffers (``mesh.all_to_all``);
-  4. sort/segment-reduce the received keys into the shard's table.
+  4. sort/segment-reduce the received keys into the shard's table, or,
+     once a shard's merge passes the reference's bound
+     (``models.pipeline.use_bucketed``), route them into the shard's
+     hash-bucketed table (``models.pipeline.BucketedStream``), which
+     flattens back to the flat table at the stream's end.
 
 Every per-shard list holds the LOCAL shards of the mesh (all D in one
 process; a rank's own under a process group, global shard
@@ -41,16 +44,26 @@ from ..utils.dna import has_ambiguous, key_words
 from ..utils.metrics import Metrics
 
 from ..models.pipeline import (
-    after_stream_batch,
+    BucketedStream,
+    StreamCursor,
     assemble_from_table,
     auto_min_count_hist,
+    bucket_plan,
     checkpoint_kind,
     load_table,
     pack_on_device,
     require_checkpoint_kind,
     timed_stage,
+    use_bucketed,
 )
 from ..ops import count_torch
+from ..ops.bucketed_torch import (
+    BucketedTable,
+    bucketed_from_numpy,
+    bucketed_to_numpy,
+    bucketize,
+    empty_bucketed,
+)
 from ..ops.count_torch import CountTable, compact_front_sorted
 from ..ops.hash_torch import mix_words, owner_of
 from ..ops.kmer_torch import (
@@ -59,6 +72,7 @@ from ..ops.kmer_torch import (
     unpack_invalid_mask,
 )
 from ..ops.superkmer_torch import (
+    RUN_CAP,
     extract_from_records,
     from_int32_bits,
     mean_run,
@@ -220,6 +234,24 @@ def make_distributed_stream_count(
     return step
 
 
+def make_distributed_stream_count_bucketed(
+    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
+    bucket_cap: int, minimizer_len: int | None = None,
+):
+    """Bucketed variant: fn(streams, packed, n_valid[, inv]) routes each
+    shard's received raw keys into its ``BucketedStream`` (one a local
+    shard), which merges them into the shard's hash-bucketed table at its
+    cadence; routing overflow folds into the table's flag."""
+    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
+
+    def step(streams, packed, n_valid, inv=None):
+        keys, route_ovf = owned(packed, n_valid, inv)
+        for stream, kk, ro in zip(streams, keys, route_ovf):
+            stream.add(kk, ro)
+
+    return step
+
+
 def _a2a_count_bytes_per_step(
     d: int, k: int, bucket_cap: int, minimizer_len: int | None
 ) -> int:
@@ -246,15 +278,30 @@ def _bucket_cap_for(windows: int, d: int, k: int,
     return int(windows / d * 1.5) + 64
 
 
+def _recv_rows(d: int, k: int, read_len: int, batch_per_device: int,
+               bucket_cap: int, minimizer_len: int | None) -> int:
+    """Rows of one shard's received key stream a batch (the reference's
+    count, which sizes the bucketed geometry)."""
+    if minimizer_len is not None:
+        return d * bucket_cap * RUN_CAP
+    if d == 1:
+        return batch_per_device * (read_len - k + 1)
+    return d * bucket_cap
+
+
 class _StreamPlan:
     """Every shape decision of one streamed run, from (read-set shape, cfg,
-    mesh size, knobs): the reference's plan with the flat per-shard merge
-    (``bucketed`` 0, ``stride`` 1). The resharder rebuilds the plan a
-    resumed run will compute, and ``ck_params`` (equal to the reference's
-    for the same run) pins it into every mid-stream checkpoint."""
+    mesh size, knobs): the reference's plan with merge stride 1. A shard's
+    table takes the bucketed layout by the single device's rule
+    (``use_bucketed``) on one shard's merge rows, c_shard + the received
+    rows of a batch, and then the reference's geometry (``buckets``: a
+    ``BucketPlan``, else None). The resharder rebuilds the plan a resumed
+    run will compute, and ``ck_params`` (equal to the reference's for the
+    same run) pins it into every mid-stream checkpoint."""
 
     def __init__(self, b, length, cfg, d, bucket_cap, minimizer_len,
-                 table_capacity):
+                 table_capacity, bucketed: str = "auto",
+                 buckets: int | None = None, accum: int | None = None):
         wc = length - cfg.k + 1
         self.per_dev = max(1, cfg.batch_reads // d)
         self.batch_total = self.per_dev * d
@@ -266,6 +313,12 @@ class _StreamPlan:
             if bucket_cap is not None
             else _bucket_cap_for(self.per_dev * wc, d, cfg.k, minimizer_len)
         )
+        recv = _recv_rows(d, cfg.k, length, self.per_dev, self.bucket_cap,
+                          minimizer_len)
+        self.buckets = None
+        if use_bucketed(bucketed, self.c_shard + recv):
+            self.buckets = bucket_plan(self.c_shard, recv, buckets=buckets,
+                                       accum=accum)
         self.ck_params = {
             "d": d,
             "k": cfg.k,
@@ -274,31 +327,38 @@ class _StreamPlan:
             "stride": 1,
             "total_reads": b,
             "bucket_cap": self.bucket_cap,
-            "bucketed": 0,
+            "bucketed": int(self.buckets is not None),
             # a key's owner depends on the routing (its hash, or its
             # minimizer's): resuming under another would split keys
             "minimizer": 0 if minimizer_len is None else minimizer_len,
         }
+        if self.buckets is not None:
+            self.ck_params.update(self.buckets._asdict())
 
 
-def _tables_to_host(mesh: Mesh | None, tables: list[CountTable], k: int):
-    """All D shards' tables in the reference layout
-    (``count_table_to_numpy``'s tuples), on every process. mesh None: the
-    list already holds every shard."""
+def _tables_to_host(mesh: Mesh | None, tables, k: int):
+    """All D shards' tables (CountTables, or BucketedTables) in the
+    reference layout (``count_table_to_numpy``'s or ``bucketed_to_numpy``'s
+    tuples), on every process. mesh None: the list already holds every
+    shard."""
+    bucketed = isinstance(tables[0], BucketedTable)
+    to_numpy = bucketed_to_numpy if bucketed else count_torch.count_table_to_numpy
     if mesh is None or not mesh.distributed:
-        return [count_torch.count_table_to_numpy(t, k) for t in tables]
+        return [to_numpy(t, k) for t in tables]
     cols = (
         gather_to_host(mesh, xs) for xs in (
             [t.limbs for t in tables],
             [t.counts for t in tables],
-            [t.num_unique.reshape(1) for t in tables],
+            [t.num_unique.reshape(-1) for t in tables],
             [t.overflow.reshape(1).to(torch.uint8) for t in tables],
         )
     )
+    table = BucketedTable if bucketed else CountTable
     return [
-        count_torch.count_table_to_numpy(CountTable(
+        to_numpy(table(
             torch.from_numpy(limbs), torch.from_numpy(counts),
-            torch.from_numpy(num)[0], torch.from_numpy(ovf)[0] != 0), k)
+            torch.from_numpy(num) if bucketed else torch.from_numpy(num)[0],
+            torch.from_numpy(ovf)[0] != 0), k)
         for limbs, counts, num, ovf in zip(*cols)
     ]
 
@@ -313,14 +373,15 @@ def _write_shared(mesh: Mesh | None, path: str, **arrays) -> None:
 
 
 def save_sharded_stream_checkpoint(
-    tables: list[CountTable], path: str, k: int, *, next_batch: int,
-    params: dict[str, int], mesh: Mesh | None = None,
+    tables: list[CountTable] | list[BucketedTable], path: str, k: int, *,
+    next_batch: int, params: dict[str, int], mesh: Mesh | None = None,
 ) -> None:
     """Mid-stream checkpoint of the sharded streaming counter in the
     reference's format: per-shard tables concatenated (uint32 words
-    [D*C, W], int32 counts [D*C], int32 num [D], bool ovf [D]), the batch
-    cursor, the layout tag and ``params``. Either package resumes it.
-    ``tables`` are the local shards of ``mesh`` (None: all of them);
+    [D*C, W], int32 counts [D*C], int32 num [D], bool ovf [D]; bucketed
+    tables as words [D*nb, cb, W], counts [D*nb, cb], num [D*nb]), the
+    batch cursor, the layout tag and ``params``. Either package resumes
+    it. ``tables`` are the local shards of ``mesh`` (None: all of them);
     across processes the shards are gathered to the host and rank 0
     writes the one file, byte for byte what a single process writes."""
     parts = _tables_to_host(mesh, tables, k)
@@ -328,7 +389,8 @@ def save_sharded_stream_checkpoint(
         mesh, path,
         words=np.concatenate([p[0] for p in parts]),
         counts=np.concatenate([p[1] for p in parts]),
-        num=np.asarray([p[2] for p in parts], dtype=np.int32),
+        num=np.concatenate([np.atleast_1d(p[2]) for p in parts]
+                           ).astype(np.int32),
         ovf=np.asarray([p[3] for p in parts], dtype=bool),
         next_batch=np.asarray(next_batch),
         layout=np.asarray("hash_shards_stream"),
@@ -354,9 +416,20 @@ def load_sharded_stream_checkpoint(path: str):
         return arrays, int(z["next_batch"]), params
 
 
-def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int) -> list[CountTable]:
-    """The local shards' tables out of a checkpoint's all-D arrays."""
+def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int):
+    """The local shards' tables out of a checkpoint's all-D arrays
+    (BucketedTables where the words are [D*nb, cb, W])."""
     d = axis_size(mesh)
+    if arrays["words"].ndim == 3:
+        _, cb, w = arrays["words"].shape
+        words = arrays["words"].reshape(d, -1, cb, w)
+        counts = arrays["counts"].reshape(d, -1, cb)
+        num = arrays["num"].reshape(d, -1)
+        return [
+            bucketed_from_numpy(words[s], counts[s], num[s],
+                                arrays["ovf"][s], device=dev)
+            for s, dev in zip(mesh.local_shards, mesh.devices)
+        ]
     words = arrays["words"].reshape(d, c_shard, -1)
     counts = arrays["counts"].reshape(d, c_shard)
     return [
@@ -371,16 +444,21 @@ def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int) -> list[CountTable]:
 def reshard_sharded_stream_checkpoint(
     path_in: str, path_out: str, reads_shape: tuple[int, int],
     cfg: AssemblyConfig, new_d: int, *, table_capacity: int | None = None,
+    bucketed: str = "auto", _buckets: int | None = None,
+    _bucket_accum: int | None = None,
 ) -> None:
-    """Rewrite a mid-stream sharded checkpoint (flat layout) for a mesh of
-    ``new_d`` shards, so a stopped count resumes on the shards that are
-    left. A key's owner is ``mix_words(key) % D``, so this repartitions
-    the counted (key, count) rows on the host, re-sorts each new shard
-    (keys are unique, so the sort is the merge) and writes the snapshot
-    that a ``new_d`` resume of the same read set with the same
-    capacity arguments expects. The batch cursor carries over as consumed
-    reads, so ``cfg.batch_reads`` must give a global batch that divides
-    them. reads_shape: (num_reads, read_len) of the original read set.
+    """Rewrite a mid-stream sharded checkpoint (flat or bucketed layout)
+    for a mesh of ``new_d`` shards, so a stopped count resumes on the
+    shards that are left. A key's owner is ``mix_words(key) % D``, so this
+    repartitions the counted (key, count) rows on the host, re-sorts each
+    new shard (keys are unique, so the sort is the merge), puts each into
+    hash buckets where the new plan is bucketed (``bucketize``), and writes
+    the snapshot that a ``new_d`` resume of the same read set with the same
+    capacity and layout arguments (``bucketed`` and its private knobs, as
+    in ``distributed_count_table``) expects. The batch cursor carries over
+    as consumed reads, so ``cfg.batch_reads`` must give a global batch that
+    divides them. reads_shape: (num_reads, read_len) of the original read
+    set.
     """
     b, length = reads_shape
     arrays, next_batch, got = load_sharded_stream_checkpoint(path_in)
@@ -389,11 +467,6 @@ def reshard_sharded_stream_checkpoint(
             "checkpoint was written by a minimizer-routed stream; a key's "
             "owner there is its minimizer's hash, not its own, so it "
             "cannot be repartitioned by key: resume on the original mesh"
-        )
-    if got.get("bucketed", 0):
-        raise ValueError(
-            "checkpoint holds the bucketed per-shard layout; the port "
-            "reshards only the flat layout"
         )
     if got.get("k") != cfg.k or got.get("total_reads") != b:
         raise ValueError(
@@ -406,7 +479,8 @@ def reshard_sharded_stream_checkpoint(
             f"checkpoint {path_in} carries an overflow flag; it cannot be "
             "resharded (the counts are already unreliable)"
         )
-    plan = _StreamPlan(b, length, cfg, new_d, None, None, table_capacity)
+    plan = _StreamPlan(b, length, cfg, new_d, None, None, table_capacity,
+                       bucketed, _buckets, _bucket_accum)
     consumed = next_batch * got["batch_total"]
     if consumed % plan.batch_total:
         raise ValueError(
@@ -416,11 +490,12 @@ def reshard_sharded_stream_checkpoint(
             "mesh sizes"
         )
     w = key_words(cfg.k)
-    old_d, c_old = got["d"], got["c_shard"]
-    words3 = arrays["words"].reshape(old_d, c_old, w)
-    valid = np.arange(c_old)[None, :] < arrays["num"].reshape(old_d)[:, None]
+    # every old shard's (or bucket's) rows: [tables, rows, W]
+    rows = arrays["words"].shape[-2] if got.get("bucketed") else got["c_shard"]
+    words3 = arrays["words"].reshape(-1, rows, w)
+    valid = np.arange(rows)[None, :] < arrays["num"].reshape(-1)[:, None]
     keys_all = words3[valid]
-    counts_all = arrays["counts"].reshape(old_d, c_old)[valid]
+    counts_all = arrays["counts"].reshape(-1, rows)[valid]
     owner = (
         mix_words(torch.from_numpy(keys_all.astype(np.int64))) % new_d
     ).numpy()
@@ -442,11 +517,32 @@ def reshard_sharded_stream_checkpoint(
         new_words[s, :n] = ks[order]
         new_counts[s, :n] = cs[order]
         new_num[s] = n
+    tables = {
+        "words": new_words.reshape(new_d * plan.c_shard, w),
+        "counts": new_counts.reshape(-1),
+        "num": new_num,
+    }
+    if plan.buckets is not None:
+        # the resumed run expects each shard in hash buckets
+        parts = [
+            bucketed_to_numpy(bucketize(count_torch.count_table_from_numpy(
+                new_words[s], new_counts[s], new_num[s], False),
+                plan.buckets.nb, plan.buckets.cb), cfg.k)
+            for s in range(new_d)
+        ]
+        if any(p[3] for p in parts):
+            raise ValueError(
+                f"resharding to d={new_d} overflows a hash bucket of a shard "
+                f"(cb={plan.buckets.cb}); pass a larger table_capacity"
+            )
+        tables = {
+            "words": np.concatenate([p[0] for p in parts]),
+            "counts": np.concatenate([p[1] for p in parts]),
+            "num": np.concatenate([p[2] for p in parts]),
+        }
     np.savez_compressed(
         path_out,
-        words=new_words.reshape(new_d * plan.c_shard, w),
-        counts=new_counts.reshape(-1),
-        num=new_num,
+        **tables,
         ovf=np.zeros(new_d, dtype=bool),
         next_batch=np.asarray(consumed // plan.batch_total),
         layout=np.asarray("hash_shards_stream"),
@@ -548,28 +644,38 @@ def _run_distributed_stream(
     table_capacity: int | None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
+    bucketed: str = "auto", _buckets: int | None = None,
+    _bucket_accum: int | None = None,
 ) -> list[CountTable]:
     """Stream batches of ``cfg.batch_reads`` global reads through
-    :func:`make_distributed_stream_count` into carried per-shard tables.
+    :func:`make_distributed_stream_count` (or, where the plan is bucketed,
+    :func:`make_distributed_stream_count_bucketed`) into carried per-shard
+    tables.
 
     table_capacity bounds the GLOBAL unique k-mers; each shard gets
     capacity/D with hash-skew slack on the snug grid. Routing and table
     overflow accumulate on the device and raise after the last batch.
+    bucketed / _buckets / _bucket_accum: the shard tables' layout, as in
+    ``models.pipeline.count_reads_device``; a bucketed shard table flattens
+    to the flat one at the end, so the result is the same either way.
 
     stream_checkpoint + stream_checkpoint_every=N snapshot the shard
-    tables and the batch cursor every N batches; resume_stream_from
-    continues from such a snapshot (same mesh size, k, batching,
-    capacity and routing, enforced). abort_after_batch=n raises after n
-    batches of this call (the tests' stand-in for a killed run).
+    tables and the batch cursor once N batches have passed (in the
+    bucketed layout: at the next merge); resume_stream_from continues from
+    such a snapshot (same mesh size, k, batching, capacity, routing and
+    layout, enforced). abort_after_batch=n raises after n batches of this
+    call (the tests' stand-in for a killed run).
     """
     d = axis_size(mesh)
     b, length = reads.shape
     plan = _StreamPlan(b, length, cfg, d, bucket_cap, minimizer_len,
-                       table_capacity)
+                       table_capacity, bucketed, _buckets, _bucket_accum)
     any_invalid = has_ambiguous(reads)
     a2a_step = _a2a_count_bytes_per_step(d, cfg.k, plan.bucket_cap,
                                          minimizer_len)
-    step = make_distributed_stream_count(
+    make_step = (make_distributed_stream_count if plan.buckets is None
+                 else make_distributed_stream_count_bucketed)
+    step = make_step(
         mesh, cfg.k, plan.per_dev, length, plan.bucket_cap, minimizer_len
     )
     start_batch = 0
@@ -581,36 +687,50 @@ def _run_distributed_stream(
             raise ValueError(
                 f"sharded mid-stream checkpoint mismatch: saved {got}, this "
                 f"run has {plan.ck_params}; resume requires identical mesh "
-                "size/k/batching/capacity/routing/read set"
+                "size/k/batching/capacity/routing/layout/read set"
             )
         tables = _tables_from_arrays(arrays, mesh, plan.c_shard)
-    else:
+    elif plan.buckets is None:
         tables = [
             count_torch.empty_table(plan.c_shard, n_limbs(cfg.k), dev)
             for dev in mesh.devices
         ]
+    else:
+        bp = plan.buckets
+        tables = [empty_bucketed(bp.nb, bp.cb, n_limbs(cfg.k), dev)
+                  for dev in mesh.devices]
+    streams = (None if plan.buckets is None
+               else [BucketedStream(t, plan.buckets) for t in tables])
 
     def save(next_batch):
         save_sharded_stream_checkpoint(
-            tables, stream_checkpoint, cfg.k, next_batch=next_batch,
+            tables if streams is None else [st.table for st in streams],
+            stream_checkpoint, cfg.k, next_batch=next_batch,
             params=plan.ck_params, mesh=mesh,
         )
 
+    cursor = StreamCursor(
+        start_batch, plan.num_batches, every=stream_checkpoint_every,
+        save=None if stream_checkpoint is None else save,
+        abort_after_batch=abort_after_batch,
+    )
     for i, packed, inv, n_valid in _stream_batches(
         mesh, reads, plan, start_batch, any_invalid, metrics
     ):
-        tables = step(tables, packed, n_valid, inv)
+        if streams is None:
+            tables = step(tables, packed, n_valid, inv)
+        else:
+            step(streams, packed, n_valid, inv)
         if metrics is not None:
             metrics.count("a2a_bytes_count", a2a_step)
-        after_stream_batch(
-            i, start_batch, plan.num_batches, every=stream_checkpoint_every,
-            save=None if stream_checkpoint is None else save,
-            abort_after_batch=abort_after_batch,
-        )
+        cursor.after(i, streams is None or streams[0].at_boundary)
+    if streams is not None:
+        tables = [st.finish(plan.c_shard) for st in streams]
     if bool(any_reduce(mesh, [t.overflow for t in tables])):
         raise RuntimeError(
             "distributed streaming overflow (routing bucket or table "
-            "shard); increase table_capacity / bucket_cap"
+            "shard); increase table_capacity / bucket_cap (a bucketed "
+            "shard table: or take bucketed='off')"
         )
     return tables
 
@@ -621,11 +741,13 @@ def _run_distributed_step(
     table_capacity: int | None = None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
+    bucketed: str = "auto", _buckets: int | None = None,
+    _bucket_accum: int | None = None,
 ) -> list[CountTable]:
     """Count over the mesh -> per-shard tables. Streams once a shard's
     window count exceeds DIST_STREAM_WINDOWS (or to resume); below it one
-    step counts the whole read set, and the streaming checkpoint options
-    do not apply."""
+    step counts the whole read set, and the streaming checkpoint and
+    layout options do not apply."""
     d = axis_size(mesh)
     b, length = reads.shape
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
@@ -638,6 +760,7 @@ def _run_distributed_step(
             reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity,
             metrics, stream_checkpoint, stream_checkpoint_every,
             resume_stream_from, abort_after_batch=abort_after_batch,
+            bucketed=bucketed, _buckets=_buckets, _bucket_accum=_bucket_accum,
         )
     if per_dev * d != b:
         reads = np.concatenate(
@@ -673,9 +796,12 @@ def distributed_count_table(
     table_capacity: int | None = None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, abort_after_batch: int = 0,
+    bucketed: str = "auto", _buckets: int | None = None,
+    _bucket_accum: int | None = None,
 ) -> CountTable:
     """Count reads over the mesh; merge the shard tables into one
-    CountTable on shard 0's device.
+    CountTable on shard 0's device. ``bucketed`` (and its private knobs)
+    pick the streamed shard tables' layout (``_run_distributed_stream``).
 
     Shards own disjoint hash classes, not key ranges, so the gathered
     rows re-count once with their counts as weights: a re-sort into the
@@ -688,7 +814,8 @@ def distributed_count_table(
     tables = _run_distributed_step(
         reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity, metrics,
         stream_checkpoint, stream_checkpoint_every, resume_stream_from,
-        abort_after_batch=abort_after_batch,
+        abort_after_batch=abort_after_batch, bucketed=bucketed,
+        _buckets=_buckets, _bucket_accum=_bucket_accum,
     )
     limbs = all_gather(mesh, [t.limbs for t in tables])
     counts = all_gather(mesh, [t.counts for t in tables])
@@ -714,6 +841,7 @@ def assemble_distributed(
     minimizer_len: int | None = None,
     table_capacity: int | None = None,
     stream_checkpoint_every: int = 0,
+    bucketed: str = "auto",
 ):
     """End-to-end assembly with the count sharded over ``mesh`` (default:
     one shard per visible GPU): the gathered genome-sized table then runs
@@ -727,7 +855,9 @@ def assemble_distributed(
     (either package's format). With stream_checkpoint_every=N > 0 the
     streaming counter also snapshots the shard tables and the batch
     cursor to ``checkpoint`` every N batches; resume_from detects such a
-    snapshot and continues counting from it.
+    snapshot and continues counting from it. bucketed: the streamed
+    shard tables' layout (``"auto"``, ``"on"``, ``"off"``; the same table
+    either way).
     """
     if emit not in ("unitigs", "euler"):
         raise ValueError(f"emit must be 'unitigs' or 'euler', got {emit!r}")
@@ -753,6 +883,7 @@ def assemble_distributed(
                 ),
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
+                bucketed=bucketed,
             )
     out = assemble_from_table(
         table, cfg, m, dev, emit=emit,
@@ -794,6 +925,22 @@ def _shard_hist(mesh: Mesh, tables: list[CountTable]) -> np.ndarray:
         h.astype(np.int64) for h in gather_to_host(
             mesh, [count_torch.multiplicity_histogram(t) for t in tables])
     )
+
+
+def filter_shards(mesh: Mesh, tables: list[CountTable], cfg: AssemblyConfig):
+    """The sharded graph's filter stage: the coverage filter (``cfg.min_count``,
+    or the threshold of the histogram summed over all D shards), then every
+    shard cut to one snug capacity, the same on every process. Returns
+    (tables, c_shard, min_count)."""
+    min_count = cfg.min_count or auto_min_count_hist(_shard_hist(mesh, tables))
+    tables = _shard_filter_compact(tables, min_count)
+    kept = int(max_reduce(mesh, [t.num_unique for t in tables]))
+    cap = max(t.limbs.shape[0] for t in tables)
+    if mesh.distributed:
+        cap = int(max_reduce(mesh, [torch.tensor(cap, device=mesh.devices[0])]))
+    c_shard = min(cap, snug_capacity(kept))
+    return ([count_torch.resize_table(t, c_shard) for t in tables], c_shard,
+            min_count)
 
 
 def save_sharded_table(tables: list[CountTable], d: int, k: int,
@@ -854,6 +1001,7 @@ def assemble_distributed_sharded(
     minimizer_len: int | None = None,
     table_capacity: int | None = None,
     stream_checkpoint_every: int = 0,
+    bucketed: str = "auto",
 ):
     """Fully sharded assembly: the graph never gathers onto one device.
 
@@ -870,7 +1018,8 @@ def assemble_distributed_sharded(
     match on resume). With stream_checkpoint_every=N > 0 the streaming
     counter also snapshots the shard tables and the batch cursor to
     ``checkpoint`` every N batches; resume_from detects such a snapshot
-    and continues counting from it.
+    and continues counting from it. bucketed: the streamed shard tables'
+    layout, as in ``assemble_distributed``.
     """
     if cfg.k % 2 == 0:
         raise ValueError("sharded compression requires odd k")
@@ -895,23 +1044,13 @@ def assemble_distributed_sharded(
                 m, checkpoint if stream_checkpoint_every > 0 else None,
                 stream_checkpoint_every,
                 resume_from if resume_stream else None,
+                bucketed=bucketed,
             )
     if checkpoint is not None:
         save_sharded_table(tables, d, cfg.k, checkpoint, mesh)
 
     with _stage(m, "filter", mesh):
-        min_count = cfg.min_count or auto_min_count_hist(
-            _shard_hist(mesh, tables))
-        tables = _shard_filter_compact(tables, min_count)
-        # shrink every shard to one snug uniform capacity, the same on
-        # every process
-        kept = int(max_reduce(mesh, [t.num_unique for t in tables]))
-        cap = max(t.limbs.shape[0] for t in tables)
-        if mesh.distributed:
-            cap = int(max_reduce(
-                mesh, [torch.tensor(cap, device=mesh.devices[0])]))
-        c_shard = min(cap, snug_capacity(kept))
-        tables = [count_torch.resize_table(t, c_shard) for t in tables]
+        tables, c_shard, min_count = filter_shards(mesh, tables, cfg)
 
     with _stage(m, "compress", mesh):
         wire = wire_bytes(d, cfg.k, c_shard)

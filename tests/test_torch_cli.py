@@ -234,7 +234,7 @@ def test_verbose_logs_the_stages(reads_file, tmp_path, caplog):
 
 
 def test_flags_that_the_port_does_not_have():
-    for flag in ("--pallas", "--bucketed", "--merge-stride"):
+    for flag in ("--pallas", "--merge-stride"):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(["assemble", flag, "1"])
     with pytest.raises(ValueError, match="--backend dist"):
@@ -318,3 +318,85 @@ def test_accept_multiprocess_runs_a_rank_a_shard(capsys):
     assert four["sharded_run_metrics"]["counters"]["hosts"] == 2
     assert six["config"] == 6 and six["passed"] and six["multiprocess"]
     assert six["sharded_run_metrics"]["counters"]["hosts"] == 2
+
+
+def test_bucketed_choices(capsys):
+    """``--bucketed`` takes the JAX CLI's three choices and refuses others."""
+    for cmd in (["assemble"], ["reshard", "x.npz", "--out", "y.npz",
+                               "--devices", "2", "--reads", "r.txt"]):
+        for choice in ("auto", "on", "off"):
+            assert cli.build_parser().parse_args(
+                cmd + ["--bucketed", choice]).bucketed == choice
+        assert cli.build_parser().parse_args(cmd).bucketed == "auto"
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(cmd + ["--bucketed", "1"])
+        assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.fixture()
+def streamed_reads_file(tmp_path):
+    rs = simulate_reads(simulate_genome(2000, seed=63), coverage=12,
+                        read_len=60, seed=64)
+    path = tmp_path / "streamed.txt"
+    path.write_text("\n".join(decode_seq(r) for r in rs.codes) + "\n")
+    return str(path), rs.codes
+
+
+@pytest.mark.parametrize("backend", ["torch", "dist", "sharded_graph"])
+def test_bucketed_on_and_off_give_the_same_contigs(streamed_reads_file,
+                                                   tmp_path, monkeypatch,
+                                                   backend):
+    import genome_assembler_tpu_torch.parallel.pipeline as pp
+
+    monkeypatch.setattr(pp, "DIST_STREAM_WINDOWS", 0)
+    reads, _ = streamed_reads_file
+    place = {"torch": [], "dist": ["--backend", "dist", "--devices", "2"],
+             "sharded_graph": ["--backend", "dist", "--devices", "2",
+                               "--sharded-graph"]}[backend]
+    outs = {}
+    for choice in ("on", "off"):
+        outs[choice] = str(tmp_path / f"{choice}.fa")
+        assert cli.main(["assemble", "--reads", reads, "-k", "15",
+                         "--device", "cpu", "--batch-reads", "64",
+                         "--table-capacity", "8192", *place, "--bucketed",
+                         choice, "--out", outs[choice]]) == 0
+    assert _read(outs["on"]) == _read(outs["off"]) and _read(outs["on"])
+
+
+def test_reshard_takes_a_bucketed_checkpoint(streamed_reads_file, tmp_path,
+                                             monkeypatch):
+    """A 4-shard bucketed snapshot resharded to 2 shards (into the
+    bucketed layout and into the flat one) resumes to the uninterrupted
+    run's contigs."""
+    import genome_assembler_tpu_torch.parallel.pipeline as pp
+    from genome_assembler_tpu_torch.parallel.mesh import build_mesh
+    from genome_assembler_tpu_torch.utils.config import AssemblyConfig
+
+    monkeypatch.setattr(pp, "DIST_STREAM_WINDOWS", 0)
+    reads_file, codes = streamed_reads_file
+    base = ["assemble", "--reads", reads_file, "-k", "15", "--backend",
+            "dist", "--device", "cpu", "--batch-reads", "64",
+            "--table-capacity", "8192"]
+    full = str(tmp_path / "full.fa")
+    assert cli.main(base + ["--devices", "4", "--out", full]) == 0
+    ck = str(tmp_path / "mid.npz")
+    with pytest.raises(RuntimeError, match="fault injection"):
+        pp.distributed_count_table(
+            codes, AssemblyConfig(k=15, read_len=60, batch_reads=64),
+            build_mesh(4, devices=["cpu"]), table_capacity=8192,
+            stream_checkpoint=ck, stream_checkpoint_every=4,
+            abort_after_batch=5, bucketed="on")
+    with np.load(ck) as z:
+        assert int(z["bucketed"]) == 1 and z["words"].ndim == 3
+    for choice in ("on", "off"):
+        ck2 = str(tmp_path / f"mid2_{choice}.npz")
+        out = str(tmp_path / f"c_{choice}.fa")
+        assert cli.main(["reshard", ck, "--out", ck2, "--devices", "2",
+                         "--reads", reads_file, "-k", "15", "--batch-reads",
+                         "64", "--table-capacity", "8192", "--bucketed",
+                         choice]) == 0
+        with np.load(ck2) as z:
+            assert int(z["bucketed"]) == (choice == "on")
+        assert cli.main(base + ["--devices", "2", "--resume-from", ck2,
+                                "--bucketed", choice, "--out", out]) == 0
+        assert _read(out) == _read(full)

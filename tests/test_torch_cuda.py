@@ -186,6 +186,68 @@ def test_sharded_graph_on_cuda_matches_cpu(cuda_device):
     assert gpu_contigs == cpu_contigs == ref.assemble_oracle(rs.codes, cfg)
 
 
+def test_sampled_ranking_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The sampled and the cyclic pass on the card: head, rank, ok and the
+    broken predecessors equal the CPU's; compress_unitigs_device with the
+    sampled bound at 0 equals its exact pass on the card."""
+    from genome_assembler_tpu_torch.ops import count_torch, unitig_torch
+
+    rng = np.random.default_rng(5)
+    for ncycles in (0, 3):
+        order = rng.permutation(20_000)
+        prev = np.full(20_000, -1, np.int64)
+        for i, part in enumerate(np.array_split(order, 5 + ncycles)):
+            prev[part[1:]] = part[:-1]
+            if i >= 5:
+                prev[part[0]] = part[-1]
+        cpu = torch.from_numpy(prev)
+        for fn in (unitig_torch._rank_sampled,
+                   unitig_torch._rank_sampled_cyclic):
+            got, want = fn(cpu.to(cuda_device)), fn(cpu)
+            for g, w in zip(got, want):
+                assert (g == w) if isinstance(w, bool) else torch.equal(
+                    g.cpu(), w)
+    genome = ref.simulate_genome(20_000, seed=61)
+    rs = ref.simulate_reads(genome, coverage=20, read_len=100, seed=62)
+    table = count_torch.count_keys(kmer_torch.extract_canonical_flat(
+        torch.from_numpy(ref.pack_codes(rs.codes)).to(cuda_device), 100, 31))
+    monkeypatch.setattr(unitig_torch, "SAMPLED_MIN_ROWS", 0)
+    rounds = {}
+    got = unitig_torch.compress_unitigs_device(table, 31, rounds=rounds)
+    want = unitig_torch.compress_unitigs_device(table, 31, _exact=True)
+    assert rounds["pass"] == "sampled"
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_bucketed_count_on_cuda_matches_cpu(cuda_device, monkeypatch):
+    """The bucketed streaming count on the card, one device and 4 shards:
+    the table equals the CPU's flat one."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=500)
+    want = count_reads_device(reads, cfg, device="cpu", table_capacity=65536,
+                              bucketed="off")
+    for accum in (1, 4):
+        got = count_reads_device(reads, cfg, device=cuda_device,
+                                 table_capacity=65536, bucketed="on",
+                                 _bucket_accum=accum)
+        assert _tables_equal(_to_cpu(got), want)
+    monkeypatch.setattr(pipeline, "DIST_STREAM_WINDOWS", 0)
+    got = pipeline.distributed_count_table(reads, cfg, mesh.build_mesh(4),
+                                           table_capacity=65536, bucketed="on")
+    n = int(want.num_unique)
+    assert int(got.num_unique) == n
+    assert torch.equal(got.limbs[:n].cpu(), want.limbs[:n])
+    assert torch.equal(got.counts[:n].cpu(), want.counts[:n])
+
+
+def _to_cpu(table):
+    return type(table)(*(x.cpu() for x in table))
+
+
 def _noisy_reads(genome_len=20_000, coverage=40, seed=51, n_rate=0.002):
     genome = ref.simulate_genome(genome_len, seed=seed)
     reads = ref.simulate_reads(genome, coverage=coverage, read_len=100,

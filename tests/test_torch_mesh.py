@@ -117,12 +117,12 @@ def case_collectives(dmesh, flat, out, dtype):
     mesh_mod.barrier(dmesh)
 
 
-def case_tables(dmesh, flat, out, k, minimizer, streamed=False):
+def case_tables(dmesh, flat, out, k, minimizer, streamed=False, **layout):
     reads = small_reads()
     cfg = AssemblyConfig(k=k, read_len=80, batch_reads=96)
     pp.DIST_STREAM_WINDOWS = 0 if streamed else 1 << 24
     kw = dict(minimizer_len=minimizer,
-              table_capacity=8192 if streamed else None)
+              table_capacity=8192 if streamed else None, **layout)
     try:
         m = Metrics()
         got = pp._run_distributed_step(reads, cfg, dmesh, metrics=m, **kw)
@@ -156,6 +156,7 @@ def case_compress(dmesh, flat, out):
     (g, ua), (gf, uaf) = outs
     assert (g.num_unitigs, g.overflow, g.query_rounds) == (
         gf.num_unitigs, gf.overflow, gf.query_rounds)
+    assert g.rank_pass == gf.rank_pass == "sampled"  # K = 16384 = 512 x 32
     assert g.num_unitigs > 100 and g.overflow == 0
     for name in ("valid", "uid", "pos", "cov", "last_base", "heads",
                  "edge_limbs"):
@@ -163,6 +164,25 @@ def case_compress(dmesh, flat, out):
             assert torch.equal(a, b), name
     for name in ("buf", "off", "edges", "cov_sum"):
         np.testing.assert_array_equal(getattr(ua, name), getattr(uaf, name))
+
+
+def case_compress_exact(dmesh, flat, out):
+    """The forced exact pass across the ranks: the sampled pass's outputs,
+    and more query rounds."""
+    reads = simulate_reads(simulate_genome(4000, seed=71), coverage=12,
+                           read_len=80, seed=72).codes
+    cfg = AssemblyConfig(k=25, read_len=80)
+    tables = pp._shard_filter_compact(pp._run_distributed_step(
+        reads, cfg, dmesh), 1)
+    tables = [pp.count_torch.resize_table(t, 8192) for t in tables]
+    g = pc.make_sharded_compress(dmesh, 25, 8192)(tables)
+    e = pc.make_sharded_compress(dmesh, 25, 8192, _exact=True)(tables)
+    assert (g.rank_pass, e.rank_pass) == ("sampled", "exact")
+    assert g.query_rounds < e.query_rounds
+    assert (g.num_unitigs, g.overflow) == (e.num_unitigs, e.overflow)
+    for name in ("valid", "uid", "pos", "cov", "heads", "edge_limbs"):
+        for a, b in zip(getattr(g, name), getattr(e, name)):
+            assert torch.equal(a, b), name
 
 
 def _expect_stop(fn):
@@ -174,7 +194,7 @@ def _expect_stop(fn):
         raise AssertionError("the injected stop did not happen")
 
 
-def case_ckpt_stream(dmesh, flat, out):
+def case_ckpt_stream(dmesh, flat, out, **layout):
     """A mid-stream checkpoint written by the ranks against one written by
     the single-process mesh: equal files, and each resumes on the other."""
     reads = small_reads()
@@ -182,11 +202,12 @@ def case_ckpt_stream(dmesh, flat, out):
 
     def run(mesh, **kw):
         return pp._run_distributed_stream(
-            reads, cfg, mesh, None, None, 8192, **kw)
+            reads, cfg, mesh, None, None, 8192, **kw, **layout)
 
     full = run(flat)
-    by_ranks = out + ".stream_ranks.npz"
-    by_flat = f"{out}.stream_flat.rank{dmesh.rank}.npz"
+    tag = "_bucketed" if layout else ""
+    by_ranks = f"{out}.stream_ranks{tag}.npz"
+    by_flat = f"{out}.stream_flat{tag}.rank{dmesh.rank}.npz"
     for mesh, path in ((dmesh, by_ranks), (flat, by_flat)):
         _expect_stop(lambda: run(
             mesh, stream_checkpoint=path, stream_checkpoint_every=2,
@@ -225,8 +246,13 @@ CASES = {
     "tables_k41_minimizer": lambda *a: case_tables(*a, 41, 15),
     "tables_k25_streamed": lambda *a: case_tables(*a, 25, None, True),
     "tables_k25_minimizer_streamed": lambda *a: case_tables(*a, 25, 15, True),
+    "tables_k25_streamed_bucketed": lambda *a: case_tables(
+        *a, 25, None, True, bucketed="on", _buckets=8),
     "compress_and_spell_k25": case_compress,
+    "compress_sampled_equals_exact": case_compress_exact,
     "checkpoint_stream": case_ckpt_stream,
+    "checkpoint_stream_bucketed": lambda *a: case_ckpt_stream(
+        *a, bucketed="on", _buckets=8, _bucket_accum=2),
     "checkpoint_hash_shards": case_ckpt_hash_shards,
 }
 
@@ -329,6 +355,35 @@ def test_rank_written_checkpoints_resume_in_the_jax_package(rank_runs):
             reads, JaxConfig(k=25, read_len=80, batch_reads=96), jax_mesh(D),
             table_capacity=8192, resume_from=out + ".stream_ranks.npz",
         ) == want
+
+
+def test_spawn_starts_again_when_the_store_port_is_taken(monkeypatch):
+    """A port taken between the probe and rank 0's store (here: held by a
+    listening socket) fails that launch with EADDRINUSE; spawn starts the
+    ranks again on another port."""
+    import socket
+
+    from genome_assembler_tpu_torch.parallel import launch
+
+    held = socket.socket()
+    held.bind(("127.0.0.1", 0))
+    held.listen()
+    ports = [held.getsockname()[1]]
+    real, launches = launch.free_port, []
+    monkeypatch.setattr(launch, "free_port",
+                        lambda: ports.pop() if ports else real())
+    run_ranks = launch._run_ranks
+    monkeypatch.setattr(launch, "_run_ranks", lambda *a: launches.append(
+        run_ranks(*a)) or launches[-1])
+    try:
+        # world 1: the rank's barrier meets itself and it exits 0
+        res = launch.spawn(1, ["--job", "raise"], device="cpu",
+                           timeout_s=120.0,
+                           entry=(os.path.abspath(__file__),))
+    finally:
+        held.close()
+    assert res.ok, res.describe()
+    assert len(launches) == 2 and "EADDRINUSE" in launches[0].stderr[0]
 
 
 @pytest.mark.parametrize("job,limit", [("raise", 120.0), ("sleep", 4.0)])

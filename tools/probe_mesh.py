@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Two measurements on the card that order the next modules to port.
 
-    PYTHONPATH=. python3 tools/probe_mesh.py [--out FILE] [--quick]
+    PYTHONPATH=. python3 tools/probe_mesh.py [--out FILE] [--quick] [--rounds-only]
 
 (i) The sharded graph's ``compress`` with a rank a card: an error-free
     genome of 3, 6 and 12 Mb (CFG-4's size) at 30x in 100 bp reads, k=31,
     4 shards over 1, 2 and 4 NCCL ranks (as many as there are cards; one
     rank holds all 4 shards on one card). Each rank counts, filters and
-    then runs ``make_sharded_compress`` three times; rank 0 reports the
+    then runs ``make_sharded_compress`` three times with the sampled
+    two-level ranking and three times with the exact pass forced
+    (``_exact=True``), after a warm-up of each, and checks that both give
+    the same per-shard outputs; rank 0 reports, for each pass, the
     seconds of the stage, the query rounds, the doubling rounds and the
     seconds of one doubling round beside the edge rows a card holds. This
     says whether a round's time follows the rows a card holds (then more
     cards shorten the rounds) or the round's fixed costs (then only fewer
-    rounds help: the reference's sampled ranking).
+    rounds help), and what the sampled ranking's fewer rounds buy.
 (ii) ``torch.sort`` of random int64 keys at 26M, 50M and 100M rows on one
     card, CUDA events over three sorts after a warm-up: nanoseconds a row.
     A cliff between two sizes is what the reference's bucketed streaming
@@ -72,25 +75,39 @@ def rank_job(args) -> int:
     kept = int(mesh_mod.max_reduce(mesh, [t.num_unique for t in tables]))
     c_shard = snug_capacity(kept)
     tables = [count_torch.resize_table(t, c_shard) for t in tables]
-    step = pc.make_sharded_compress(mesh, K, c_shard)
-    runs = []
-    for _ in range(REPS + 1):  # the first is the warm-up
-        for dev in mesh.devices:
-            synchronize(dev)
-        mesh_mod.barrier(mesh)
-        t0 = time.perf_counter()
-        g = step(tables)
-        for dev in mesh.devices:
-            synchronize(dev)
-        mesh_mod.barrier(mesh)
-        runs.append({
-            "compress_s": time.perf_counter() - t0,
-            "query_rounds": g.query_rounds,
-            "doubling_rounds": g.doubling_rounds,
-            "s_a_doubling_round": g.doubling_seconds / max(g.doubling_rounds, 1),
-        })
-        if g.overflow:
-            raise RuntimeError(f"compress overflow bits {g.overflow}")
+    runs, outputs = {}, {}
+    for name in ("sampled", "exact"):
+        step = pc.make_sharded_compress(mesh, K, c_shard, _exact=name == "exact")
+        runs[name] = []
+        for _ in range(REPS + 1):  # the first is the warm-up
+            for dev in mesh.devices:
+                synchronize(dev)
+            mesh_mod.barrier(mesh)
+            t0 = time.perf_counter()
+            g = step(tables)
+            for dev in mesh.devices:
+                synchronize(dev)
+            mesh_mod.barrier(mesh)
+            runs[name].append({
+                "compress_s": time.perf_counter() - t0,
+                "rank_pass": g.rank_pass,
+                "query_rounds": g.query_rounds,
+                "doubling_rounds": g.doubling_rounds,
+                "s_a_doubling_round": g.doubling_seconds / max(
+                    g.doubling_rounds, 1),
+            })
+            if g.overflow:
+                raise RuntimeError(f"compress overflow bits {g.overflow}")
+        runs[name] = runs[name][1:]
+        outputs[name] = g
+    g, ge = outputs["sampled"], outputs["exact"]
+    differ = [
+        not all(torch.equal(getattr(g, f)[i], getattr(ge, f)[i])
+                for f in ("valid", "uid", "pos", "heads"))
+        for i in range(mesh.local_size)
+    ]
+    differ = bool(mesh_mod.any_reduce(mesh, [
+        torch.tensor(x, device=dev) for x, dev in zip(differ, mesh.devices)]))
     if mesh.rank == 0:
         with open(args.out, "w") as fh:
             json.dump({
@@ -99,8 +116,10 @@ def rank_job(args) -> int:
                 "edge_rows_a_card": mesh.local_size * 2 * c_shard,
                 "edge_rows_global": D * 2 * c_shard,
                 "unitigs": g.num_unitigs,
+                "sampled_equals_exact": not differ
+                and g.num_unitigs == ge.num_unitigs,
                 "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
-                "runs": runs[1:],
+                "runs": runs,
             }, fh)
     mesh_mod.shutdown_distributed()
     return 0
@@ -205,6 +224,8 @@ def main() -> int:
     p.add_argument("--out", default=None, help="keep the rows as JSON here")
     p.add_argument("--quick", action="store_true",
                    help="the 12 Mb genome only, and the sort")
+    p.add_argument("--rounds-only", action="store_true",
+                   help="measurement (i) alone")
     p.add_argument("--rank-job", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--reads", default=None, help=argparse.SUPPRESS)
     p.add_argument("--capacity", type=int, default=None,
@@ -231,10 +252,12 @@ def main() -> int:
         rows.append(row)
         print(json.dumps(row), flush=True)
 
-    measure_sort([26_000_000, 50_000_000, 100_000_000], emit)
+    if not args.rounds_only:
+        measure_sort([26_000_000, 50_000_000, 100_000_000], emit)
     measure_rounds([12_000_000] if args.quick
                    else [3_000_000, 6_000_000, 12_000_000], emit)
-    measure_count(emit)
+    if not args.rounds_only:
+        measure_count(emit)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
