@@ -100,12 +100,22 @@ result line:
      must pick ``"on"`` at this size), the tables bit-equal, ``count``
      seconds of each and the geometry printed; a bucketed stop and resume
      on CFG-2's reads equals the uninterrupted run; CFG-4 on 4 shards with
-     ``bucketed="on"`` against ``"off"``: per-shard tables equal.
+     ``bucketed="on"`` against ``"off"``: per-shard tables equal;
+ 16. deferred merges (``merge_stride``): CFG-4's reads on one device at
+     strides 1, 2, 4 and 8 with ``bucketed="off"`` (twice, the second
+     time in the reverse order) and ``"auto"`` (once); every table
+     bit-equal to the flat stride-1 one; ``count`` seconds, the layout
+     ``auto`` takes, the rows a merge sorts and the peak GiB printed; on
+     4 shards at strides 2 and 4, ``"auto"`` and ``"off"``, shard tables
+     equal to stride 1's; a stride-3 stop and resume on CFG-2's reads,
+     one device and 4 shards, and the 4-shard snapshot resharded to 2
+     shards and resumed.
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
-phase's ring run, the acceptance runners, the multi-process ranks and the
-bucketed counts of phase 15, and given for each in ``launches_by_path``); the last line is
+phase's ring run, the acceptance runners, the multi-process ranks, the
+bucketed counts of phase 15 and the strided counts of phase 16, and
+given for each in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
 """
@@ -1259,6 +1269,145 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     return launches
 
 
+def timed_count(torch, fn, kmer, devices):
+    """(result, seconds, kernel launches, peak GiB) of one count: the
+    launch counter and the peak statistics reset just before it."""
+    for d_ in devices:
+        torch.cuda.synchronize(d_)
+        torch.cuda.reset_peak_memory_stats(d_)
+    kmer.extract_canonical_flat.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    for d_ in devices:
+        torch.cuda.synchronize(d_)
+    secs = round(time.perf_counter() - t0, 4)
+    peak = max(torch.cuda.max_memory_allocated(d_) for d_ in devices)
+    return out, secs, kmer.extract_canonical_flat.launches, round(
+        peak / 2**30, 2)
+
+
+def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
+                 cfg2_reads, cfg2_cap, dev):
+    """Phase 16: deferred merges (merge stride) on one device and on 4
+    shards against stride 1, and a strided stop, resume and reshard."""
+    import numpy as np
+
+    reads, cfg, capacity, _ = cfg4
+    n_batches = -(-reads.shape[0] // cfg.batch_reads)
+    bw = cfg.batch_reads * (100 - cfg.k + 1)
+    launches = {"cfg4_strided_one_device": 0, "cfg4_strided_4_shards": 0}
+
+    # (a) one device: strides 1, 2, 4, 8 flat (twice, the second time in
+    # the reverse order, so no stride always runs first), then auto once
+    base = None
+    runs = {}
+    order = [(s_, "off") for s_ in (1, 2, 4, 8)]
+    order += order[::-1] + [(s_, "auto") for s_ in (1, 2, 4, 8)]
+    for stride, layout in order:
+        t, secs, n, peak = timed_count(torch, lambda: (
+            pipeline.count_reads_device(
+                reads, cfg, device=dev, table_capacity=capacity,
+                bucketed=layout, merge_stride=stride)), kmer, [dev])
+        check(n == n_batches, f"stride {stride} {layout}: {n} "
+              f"launches for {n_batches} batches")
+        if base is None:
+            base = t
+        check(tables_bit_equal(torch, t, base),
+              f"CFG-4 stride {stride}, {layout}: table != stride 1")
+        if stride > 1:
+            launches["cfg4_strided_one_device"] += n
+        r = runs.setdefault(f"{stride}/{layout}", {
+            "stride": stride, "layout": layout,
+            "auto_takes": "buckets" if pipeline.use_bucketed(
+                "auto", capacity + stride * bw) else "flat",
+            "merge_rows": capacity + stride * bw, "count_s": [],
+            "peak_gib": peak})
+        r["count_s"].append(secs)
+        del t
+    del base
+    for r in runs.values():
+        log("stride, CFG-4 on one device: " + json.dumps(r))
+
+    # (b) 4 shards: stride 1 flat, then strides 2 and 4, auto and flat
+    mesh = mesh_mod.build_mesh(4)
+    base, secs, _, _ = timed_count(torch, lambda: dist._run_distributed_step(
+        reads, cfg, mesh, table_capacity=capacity, bucketed="off"), kmer,
+        mesh.devices)
+    log(f"stride, CFG-4 on {mesh}: stride 1, flat: count_s {secs}")
+    for stride in (2, 4):
+        for layout in ("auto", "off"):
+            plan = dist._StreamPlan(reads.shape[0], 100, cfg, 4, None, None,
+                                    capacity, layout, merge_stride=stride)
+            tables, secs, n, peak = timed_count(
+                torch, lambda: dist._run_distributed_step(
+                    reads, cfg, mesh, table_capacity=capacity,
+                    bucketed=layout, merge_stride=stride), kmer,
+                mesh.devices)
+            launches["cfg4_strided_4_shards"] += n
+            check(n == 4 * plan.num_batches,
+                  f"4 shards stride {stride}: {n} launches")
+            check(all(tables_bit_equal(torch, a, b_)
+                      for a, b_ in zip(tables, base)),
+                  f"CFG-4 on 4 shards, stride {stride} {layout}: shard "
+                  "tables != stride 1's")
+            log(f"stride, CFG-4 on {mesh}: " + json.dumps({
+                "stride": stride, "layout": layout,
+                "takes": "buckets" if plan.buckets else "flat",
+                "merge_rows": plan.c_shard + stride * plan.recv,
+                "count_s": secs, "peak_gib": peak}))
+            del tables
+    del base
+
+    # (c) a strided stop and resume on CFG-2's reads, and a reshard
+    cfg2 = ref.AssemblyConfig(k=31, read_len=100)
+    mesh2 = mesh_mod.build_mesh(2)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "mid.npz")
+        counts = [
+            ("one device", lambda **kw: pipeline.count_reads_device(
+                cfg2_reads, cfg2, device=dev, table_capacity=cfg2_cap,
+                merge_stride=3, **kw)),
+            ("4 shards", lambda **kw: dist.distributed_count_table(
+                cfg2_reads, cfg2, mesh, table_capacity=cfg2_cap,
+                merge_stride=3, **kw)),
+        ]
+        for name, count in counts:
+            full = count()
+            expect_stop(lambda: count(stream_checkpoint=ck,
+                                      stream_checkpoint_every=2,
+                                      abort_after_batch=5))
+            with np.load(ck) as z:
+                at = int(z["next_start" if name == "one device"
+                           else "next_batch"])
+            at = at // cfg2.batch_reads if name == "one device" else at
+            check(at == 3, f"strided snapshot, {name}: after batch {at}")
+            check(tables_equal(torch, count(resume_stream_from=ck), full),
+                  f"strided resume, {name}: table != uninterrupted")
+            log(f"stride resume, CFG-2's reads, {name}, stride 3: stopped "
+                "after 5 of 9 batches, resumed from the snapshot after "
+                "batch 3 (the first merge once 2 batches had passed), "
+                "table equal to the uninterrupted run")
+        ck2 = os.path.join(tmp, "mid2.npz")
+        t0 = time.perf_counter()
+        dist.reshard_sharded_stream_checkpoint(
+            ck, ck2, cfg2_reads.shape, cfg2, 2, table_capacity=cfg2_cap,
+            merge_stride=3)
+        t_reshard = time.perf_counter() - t0
+        resumed = dist.distributed_count_table(
+            cfg2_reads, cfg2, mesh2, table_capacity=cfg2_cap,
+            merge_stride=3, resume_stream_from=ck2)
+        n = int(full.num_unique)
+        check(int(resumed.num_unique) == n
+              and torch.equal(resumed.limbs[:n], full.limbs[:n])
+              and torch.equal(resumed.counts[:n], full.counts[:n]),
+              "strided reshard 4 -> 2: resumed table != uninterrupted")
+        log(f"stride reshard, CFG-2's reads: the 4-shard stride-3 snapshot "
+            f"resharded to 2 shards in {t_reshard:.2f} s, resumed on "
+            f"{mesh2} to the uninterrupted table")
+        del full, resumed
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1310,6 +1459,8 @@ def main() -> int:
     keep.cleanup()
     by_path.update(phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer,
                                   cfg4, cfg2_reads, cfg2_cap, dev))
+    by_path.update(phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer,
+                                cfg4, cfg2_reads, cfg2_cap, dev))
     del cfg4, cfg4_reads, cfg2_reads
     foreign = sorted(
         name for name in sys.modules

@@ -10,6 +10,7 @@
     torchrun --nproc-per-node 4 -m genome_assembler_tpu_torch.cli assemble \
         --reads reads.txt --backend dist --devices 4 --hosts 4   # a rank a card
     ga-torch assemble --reads reads.txt --table-capacity 20000000 --bucketed on
+    ga-torch assemble --reads reads.txt --table-capacity 20000000 --merge-stride 4
     ga-torch reshard mid.npz --out mid2.npz --devices 2 --reads reads.txt
     ga-torch stats contigs.fa
     ga-torch accept 0 1 2 --device cuda
@@ -30,7 +31,9 @@ cpu``): every rank runs the identical command on the same reads file and
 owns ``--devices / --hosts`` shards. ``--bucketed`` picks the streaming
 count table's layout (hash buckets merged a few batches at a time, or one
 flat table; ``auto`` takes the buckets once one merge passes 25 x 2^20
-rows, as ``ga-tpu`` does); the counts are the same either way.
+rows, as ``ga-tpu`` does); ``--merge-stride N`` lets the raw keys of N
+batches wait on the device and merges them at once (the layout rule then
+counts N batches' rows); the counts are the same either way.
 ``--trace-dir`` wraps the
 run in ``torch.profiler`` and leaves a Chrome trace there, every stage a
 named span. Read parsing, FASTA output and
@@ -294,6 +297,8 @@ def cmd_assemble(args) -> int:
     from .models.pipeline import assemble_torch
     from .utils.device import resolve_device
 
+    if args.merge_stride is not None and args.merge_stride < 1:
+        raise SystemExit("--merge-stride must be >= 1")
     if args.backend == "oracle":
         return _assemble_oracle(args)
     device = resolve_device(args.device)  # fails before any work
@@ -341,6 +346,7 @@ def cmd_assemble(args) -> int:
         table_capacity=args.table_capacity,
         stream_checkpoint_every=args.stream_checkpoint_every,
         bucketed=args.bucketed,
+        merge_stride=args.merge_stride,
     )
     with profiler_trace(args.trace_dir):
         if mesh is None:
@@ -356,6 +362,10 @@ def cmd_assemble(args) -> int:
             )
             where = f"dist: {mesh}" + (", sharded graph" if args.sharded_graph
                                        else "")
+    stride = None
+    if "count" in metrics.stages:  # the reads were counted: the stride taken
+        stride = int(metrics.counters.get("merge_stride", 1))
+        where += f", merge stride {stride}"
     contigs, coverages = _graph_outputs(args, graph)
     dt = time.perf_counter() - t0
     if args.metrics_out:
@@ -366,7 +376,8 @@ def cmd_assemble(args) -> int:
         from .ops.kmer_torch import extract_canonical_flat
 
         report = dict(metrics.report(), device=str(device), wall_s=dt,
-                      kernel_launches=extract_canonical_flat.launches)
+                      kernel_launches=extract_canonical_flat.launches,
+                      merge_stride=stride)
         if device.type == "cuda":
             import torch
 
@@ -398,9 +409,12 @@ def cmd_reshard(args) -> int:
 
     reads = _load_reads(args.reads)
     cfg = AssemblyConfig(k=args.k, read_len=reads.shape[1], **_batch(args))
+    if args.merge_stride is not None and args.merge_stride < 1:
+        raise SystemExit("--merge-stride must be >= 1")
     reshard_sharded_stream_checkpoint(
         args.infile, args.out, reads.shape, cfg, args.devices,
         table_capacity=args.table_capacity, bucketed=args.bucketed,
+        merge_stride=args.merge_stride,
     )
     print(f"resharded {args.infile} -> {args.out} for {args.devices} shards",
           file=sys.stderr)
@@ -531,6 +545,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "(on), one flat table (off), or buckets once one merge "
                     "passes 25 x 2^20 rows (auto, the default; torch and "
                     "dist backends; every shard's table with dist)")
+    pa.add_argument("--merge-stride", type=int, default=None,
+                    help="deferred merges: the streaming count's raw keys "
+                    "of this many batches wait on the device and merge "
+                    "into the table at once (torch and dist backends; "
+                    "default 1, a merge every batch; the same table at "
+                    "any stride; --metrics-out and stderr name the stride "
+                    "taken)")
     pa.set_defaults(fn=cmd_assemble)
 
     rp = sub.add_parser(
@@ -551,6 +572,9 @@ def build_parser() -> argparse.ArgumentParser:
                     default="auto",
                     help="the layout the resumed run will take (its "
                     "--bucketed); the input may be in either")
+    rp.add_argument("--merge-stride", type=int, default=None,
+                    help="the merge stride the resumed run will take (its "
+                    "--merge-stride)")
     rp.set_defaults(fn=cmd_reshard)
 
     pst = sub.add_parser(

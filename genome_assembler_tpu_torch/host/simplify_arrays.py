@@ -179,9 +179,8 @@ def from_unitigs(unitigs: list[Unitig], k: int) -> UnitigArrays:
 def to_unitig_list(ua: UnitigArrays) -> list[Unitig]:
     """Decode columnar unitigs into Unitig objects (one bulk LUT pass).
 
-    The single decode surface — to_unitig_graph and both spell wrappers
-    (host.dbg.spell_device_unitigs, parallel.compress.spell_quads_host)
-    share it.
+    The single decode surface — to_unitig_graph and the spell wrapper
+    host.dbg.spell_device_unitigs share it.
     """
     from .dbg import _DECODE_LUT
 

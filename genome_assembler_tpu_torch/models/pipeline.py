@@ -22,7 +22,9 @@ counter can snapshot its table and batch cursor mid-stream and resume
 from such a snapshot, in the reference's format. Past
 ``BUCKETED_MIN_MERGE_ROWS`` rows a merge (the reference's bound) it keeps
 its table in hash buckets and merges every ``BUCKET_ACCUM`` batches, as
-the reference does, so both packages pick one layout for one run.
+the reference does, so both packages pick one layout for one run. With a
+merge stride s (``merge_stride``) the raw keys of s batches wait on the
+device (``PendingKeys``) and merge at once, in either layout.
 """
 
 from __future__ import annotations
@@ -238,6 +240,62 @@ class BucketedStream:
         return flatten_bucketed(self.table, capacity)
 
 
+class PendingKeys:
+    """Deferred merges (the reference's merge stride): the raw keys of up
+    to ``stride`` batches wait in one device buffer of ``rows`` rows, and
+    the table merges them all at once, so its capacity-sized sort runs
+    once per ``stride`` batches. Batch after batch lands behind the last
+    one (a short batch leaves no gap), and a merge takes only the filled
+    rows, so no key of an earlier round is merged twice. Merges aggregate
+    associatively and ignore sentinel rows: the table equals merging
+    every batch. ``overflow`` gathers the routing flags of the waiting
+    batches (the sharded stream's) until they merge."""
+
+    def __init__(self, stride: int, rows: int, nl: int,
+                 device: torch.device):
+        self.stride, self.slot, self.fill = stride, 0, 0
+        self.buf = torch.empty((rows, nl), dtype=torch.int64, device=device)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
+
+    @property
+    def at_boundary(self) -> bool:
+        """No batch waits for its merge (a snapshot may be taken)."""
+        return self.slot == 0
+
+    def add(self, keys: torch.Tensor, route_overflow=None) -> bool:
+        """Append one batch's raw keys; True once ``stride`` batches wait."""
+        n = keys.shape[0]
+        self.buf[self.fill : self.fill + n] = keys
+        self.fill += n
+        self.slot += 1
+        if route_overflow is not None:
+            self.overflow = self.overflow | route_overflow
+        return self.slot == self.stride
+
+    def merge(self, table: CountTable | None,
+              stream: "BucketedStream | None") -> CountTable | None:
+        """Merge the waiting keys, with their routing flag, into
+        ``stream`` (in place; its plan merges once an ``add``) or else
+        into the flat ``table``; returns the flat table (``table`` as it
+        was under a stream). The buffer is empty after it."""
+        keys, over = self.buf[: self.fill], self.overflow
+        self.slot = self.fill = 0
+        self.overflow = torch.zeros_like(over)
+        if stream is not None:
+            stream.add(keys, over)
+            return table
+        merged = count_torch.merge_raw_keys(table, keys)
+        return merged._replace(overflow=merged.overflow | over)
+
+
+def stride_taken(merge_stride: int | None, n_batches: int) -> int:
+    """The stride a stream of ``n_batches`` batches runs at: the
+    reference's rule, deferred merges only with ``merge_stride`` > 1 and
+    more than one batch (else 1; None or 0 is 1, as there)."""
+    stride = merge_stride or 1
+    return stride if stride > 1 and n_batches > 1 else 1
+
+
 def save_stream_checkpoint(
     table: CountTable | BucketedTable, path: str, k: int, *,
     next_start: int, params: dict[str, int],
@@ -361,6 +419,8 @@ def count_reads_device(
     resume_stream_from: str | None = None,
     abort_after_batch: int = 0,
     bucketed: str = "auto",
+    merge_stride: int | None = None,
+    metrics: Metrics | None = None,
     _plain_upload: bool = False,
     _buckets: int | None = None,
     _bucket_accum: int | None = None,
@@ -385,12 +445,22 @@ def count_reads_device(
     merge every BUCKET_ACCUM batches (``BucketedStream``); ``_buckets`` and
     ``_bucket_accum`` set the bucket count and that cadence (for tests).
 
+    merge_stride: deferred merges. With a stride s > 1 and more than one
+    batch, each batch's raw keys only wait in a ``PendingKeys`` buffer,
+    and the table merges s batches at once (from an empty table; the
+    tail merges what waits). The layout rule then counts s batches'
+    windows, and the bucketed layout merges once per s batches
+    (accumulation 1). The table is the same at any stride. ``metrics``
+    (if given) counts the stride a streamed count took as
+    ``merge_stride`` where one was asked for.
+
     stream_checkpoint + stream_checkpoint_every=N: once N streamed batches
-    have passed (in the bucketed layout: at the next merge), snapshot the
-    carried table and the batch cursor to ``stream_checkpoint``;
-    resume_stream_from continues from such a snapshot (written by either
-    package) to the same table as an uninterrupted run. The snapshot's k,
-    batch, capacity, read count and layout must match this run's.
+    have passed (in the bucketed layout or under a stride: at the next
+    merge), snapshot the carried table and the batch cursor to
+    ``stream_checkpoint``; resume_stream_from continues from such a
+    snapshot (written by either package) to the same table as an
+    uninterrupted run. The snapshot's k, batch, capacity, stride, read
+    count and layout must match this run's.
     abort_after_batch=n raises after n batches of this call (the tests'
     stand-in for a killed run).
     """
@@ -399,6 +469,9 @@ def count_reads_device(
     b, length = reads.shape
     total_windows = b * (length - cfg.k + 1)
     has_invalid = has_ambiguous(reads)
+    batch = cfg.batch_reads
+    starts = range(0, b, batch)
+    stride = stride_taken(merge_stride, len(starts))
 
     if table_capacity is None and total_windows <= SINGLE_SHOT_WINDOWS:
         if resume_stream_from is not None:
@@ -412,20 +485,21 @@ def count_reads_device(
         return _count_batch(packed, length, cfg.k, inv)
 
     capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
-    batch = cfg.batch_reads
-    starts = range(0, b, batch)
-    merge_windows = batch * (length - cfg.k + 1)
-    # everything the carried table depends on: the reference's keys, with
-    # its merge stride 1
+    bw = batch * (length - cfg.k + 1)
+    if metrics is not None and merge_stride is not None:
+        metrics.count("merge_stride", stride)
+    merge_windows = stride * bw
+    # everything the carried table depends on: the reference's keys
     ck_params = {
-        "k": cfg.k, "batch": batch, "capacity": capacity, "stride": 1,
+        "k": cfg.k, "batch": batch, "capacity": capacity, "stride": stride,
         "total_reads": b,
         "bucketed": int(use_bucketed(bucketed, capacity + merge_windows)),
     }
     plan = None
     if ck_params["bucketed"]:
+        # under a stride the pending rows merge at once (accumulation 1)
         plan = bucket_plan(capacity, merge_windows, buckets=_buckets,
-                           accum=_bucket_accum)
+                           accum=1 if stride > 1 else _bucket_accum)
         ck_params.update(plan._asdict())
     table = None
     start_idx = 0
@@ -437,7 +511,7 @@ def count_reads_device(
             raise ValueError(
                 f"mid-stream checkpoint mismatch: saved {got}, this run has "
                 f"{ck_params}; resume requires identical k/batch/capacity/"
-                "read set/layout"
+                "stride/read set/layout"
             )
         start_idx = next_start // batch
     stream = None
@@ -447,6 +521,12 @@ def count_reads_device(
                 plan.nb, plan.cb, n_limbs(cfg.k), device),
             plan,
         )
+    pending = None
+    if stride > 1:
+        pending = PendingKeys(stride, min(merge_windows, total_windows),
+                              n_limbs(cfg.k), device)
+        if table is None and stream is None:
+            table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
 
     def save(next_batch):
         save_stream_checkpoint(
@@ -471,7 +551,11 @@ def count_reads_device(
     with ring:
         for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
             packed, inv = pack_on_device(codes, has_invalid)
-            if stream is not None:
+            if pending is not None:
+                if pending.add(extract_canonical_flat(packed, length, cfg.k,
+                                                      inv_bits=inv)):
+                    table = pending.merge(table, stream)
+            elif stream is not None:
                 stream.add(extract_canonical_flat(packed, length, cfg.k,
                                                   inv_bits=inv))
             elif table is None:
@@ -480,7 +564,10 @@ def count_reads_device(
             else:
                 table = _stream_step(table, packed, length, cfg.k, inv)
             # the table after batch i, whatever is already uploaded
-            cursor.after(i, stream is None or stream.at_boundary)
+            cursor.after(i, (pending is None or pending.at_boundary)
+                         and (stream is None or stream.at_boundary))
+    if pending is not None and not pending.at_boundary:
+        table = pending.merge(table, stream)
     if stream is not None:
         return stream.finish(capacity)
     if table is None:  # no reads at all
@@ -637,6 +724,7 @@ def assemble_torch(
     emit: str = "unitigs",
     stream_checkpoint_every: int = 0,
     bucketed: str = "auto",
+    merge_stride: int | None = None,
 ):
     """End-to-end single-device assembly: reads -> canonical contigs.
 
@@ -646,7 +734,9 @@ def assemble_torch(
     stream_checkpoint_every=N > 0 the streaming counter also snapshots
     its table and batch cursor to ``checkpoint`` every N batches;
     resume_from detects such a snapshot and continues counting from it.
-    bucketed: the streaming table's layout (``count_reads_device``).
+    bucketed, merge_stride: the streaming table's layout and merge
+    cadence (``count_reads_device``; a stride asked for leaves the stride
+    taken in the metrics' ``merge_stride`` counter).
     emit: ``"unitigs"`` stops contigs at junctions, ``"euler"`` spells
     Eulerian walks. Contigs equal ``assemble_tpu``'s and
     ``assemble_oracle``'s.
@@ -676,7 +766,7 @@ def assemble_torch(
                 ),
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
-                bucketed=bucketed,
+                bucketed=bucketed, merge_stride=merge_stride, metrics=m,
             )
         # the reads in, the keys out and in again to the sort; the
         # reference's figure has 4-byte words, the port's keys are

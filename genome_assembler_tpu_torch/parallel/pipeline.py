@@ -1,7 +1,7 @@
 """Hash-sharded counting over a mesh of D shards, and the assembly on top.
 
-Counterpart of ``genome_assembler_tpu/parallel/pipeline.py`` (no merge
-stride). Per shard and read batch:
+Counterpart of ``genome_assembler_tpu/parallel/pipeline.py``. Per shard
+and read batch:
 
   1. extract + canonicalize the shard's packed reads (the CUDA kernel on
      the card, ``ops.kmer_torch.extract_canonical_flat``);
@@ -15,7 +15,9 @@ stride). Per shard and read batch:
      once a shard's merge passes the reference's bound
      (``models.pipeline.use_bucketed``), route them into the shard's
      hash-bucketed table (``models.pipeline.BucketedStream``), which
-     flattens back to the flat table at the stream's end.
+     flattens back to the flat table at the stream's end. Under a merge
+     stride s the received keys of s batches wait in the shard's
+     ``models.pipeline.PendingKeys`` and merge at once, shard by shard.
 
 Every per-shard list holds the LOCAL shards of the mesh (all D in one
 process; a rank's own under a process group, global shard
@@ -45,6 +47,7 @@ from ..utils.metrics import Metrics
 
 from ..models.pipeline import (
     BucketedStream,
+    PendingKeys,
     StreamCursor,
     assemble_from_table,
     auto_min_count_hist,
@@ -53,6 +56,7 @@ from ..models.pipeline import (
     load_table,
     pack_on_device,
     require_checkpoint_kind,
+    stride_taken,
     timed_stage,
     use_bucketed,
 )
@@ -252,6 +256,25 @@ def make_distributed_stream_count_bucketed(
     return step
 
 
+def make_distributed_stream_append(
+    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
+    bucket_cap: int, minimizer_len: int | None = None,
+):
+    """Deferred-merge variant: fn(pendings, packed, n_valid[, inv]) only
+    appends each shard's received raw keys, with its routing flag, to the
+    shard's ``PendingKeys``; True once the stride's batches wait (on
+    every shard at once). The caller then merges each shard's pending
+    keys into its table (``PendingKeys.merge``)."""
+    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
+
+    def step(pendings, packed, n_valid, inv=None):
+        keys, route_ovf = owned(packed, n_valid, inv)
+        return all([p.add(kk, ro)
+                    for p, kk, ro in zip(pendings, keys, route_ovf)])
+
+    return step
+
+
 def _a2a_count_bytes_per_step(
     d: int, k: int, bucket_cap: int, minimizer_len: int | None
 ) -> int:
@@ -291,17 +314,21 @@ def _recv_rows(d: int, k: int, read_len: int, batch_per_device: int,
 
 class _StreamPlan:
     """Every shape decision of one streamed run, from (read-set shape, cfg,
-    mesh size, knobs): the reference's plan with merge stride 1. A shard's
-    table takes the bucketed layout by the single device's rule
-    (``use_bucketed``) on one shard's merge rows, c_shard + the received
-    rows of a batch, and then the reference's geometry (``buckets``: a
-    ``BucketPlan``, else None). The resharder rebuilds the plan a resumed
-    run will compute, and ``ck_params`` (equal to the reference's for the
-    same run) pins it into every mid-stream checkpoint."""
+    mesh size, knobs): the reference's plan. ``stride`` is the merge
+    stride taken (``stride_taken``: 1 unless ``merge_stride`` > 1 and
+    there is more than one batch). A shard's table takes the bucketed
+    layout by the single device's rule (``use_bucketed``) on one shard's
+    merge rows, c_shard + stride x the received rows of a batch, and then
+    the reference's geometry on those rows (``buckets``: a ``BucketPlan``,
+    accumulation 1 under a stride; else None). The resharder rebuilds the
+    plan a resumed run will compute, and ``ck_params`` (equal to the
+    reference's for the same run) pins it into every mid-stream
+    checkpoint."""
 
     def __init__(self, b, length, cfg, d, bucket_cap, minimizer_len,
                  table_capacity, bucketed: str = "auto",
-                 buckets: int | None = None, accum: int | None = None):
+                 buckets: int | None = None, accum: int | None = None,
+                 merge_stride: int | None = None):
         wc = length - cfg.k + 1
         self.per_dev = max(1, cfg.batch_reads // d)
         self.batch_total = self.per_dev * d
@@ -313,18 +340,21 @@ class _StreamPlan:
             if bucket_cap is not None
             else _bucket_cap_for(self.per_dev * wc, d, cfg.k, minimizer_len)
         )
-        recv = _recv_rows(d, cfg.k, length, self.per_dev, self.bucket_cap,
-                          minimizer_len)
+        self.recv = _recv_rows(d, cfg.k, length, self.per_dev,
+                               self.bucket_cap, minimizer_len)
+        self.stride = stride_taken(merge_stride, self.num_batches)
+        merge_rows = self.stride * self.recv
         self.buckets = None
-        if use_bucketed(bucketed, self.c_shard + recv):
-            self.buckets = bucket_plan(self.c_shard, recv, buckets=buckets,
-                                       accum=accum)
+        if use_bucketed(bucketed, self.c_shard + merge_rows):
+            self.buckets = bucket_plan(
+                self.c_shard, merge_rows, buckets=buckets,
+                accum=1 if self.stride > 1 else accum)
         self.ck_params = {
             "d": d,
             "k": cfg.k,
             "batch_total": self.batch_total,
             "c_shard": self.c_shard,
-            "stride": 1,
+            "stride": self.stride,
             "total_reads": b,
             "bucket_cap": self.bucket_cap,
             "bucketed": int(self.buckets is not None),
@@ -444,8 +474,8 @@ def _tables_from_arrays(arrays, mesh: Mesh, c_shard: int):
 def reshard_sharded_stream_checkpoint(
     path_in: str, path_out: str, reads_shape: tuple[int, int],
     cfg: AssemblyConfig, new_d: int, *, table_capacity: int | None = None,
-    bucketed: str = "auto", _buckets: int | None = None,
-    _bucket_accum: int | None = None,
+    bucketed: str = "auto", merge_stride: int | None = None,
+    _buckets: int | None = None, _bucket_accum: int | None = None,
 ) -> None:
     """Rewrite a mid-stream sharded checkpoint (flat or bucketed layout)
     for a mesh of ``new_d`` shards, so a stopped count resumes on the
@@ -454,11 +484,11 @@ def reshard_sharded_stream_checkpoint(
     new shard (keys are unique, so the sort is the merge), puts each into
     hash buckets where the new plan is bucketed (``bucketize``), and writes
     the snapshot that a ``new_d`` resume of the same read set with the same
-    capacity and layout arguments (``bucketed`` and its private knobs, as
-    in ``distributed_count_table``) expects. The batch cursor carries over
-    as consumed reads, so ``cfg.batch_reads`` must give a global batch that
-    divides them. reads_shape: (num_reads, read_len) of the original read
-    set.
+    capacity, layout and stride arguments (``bucketed``, ``merge_stride``
+    and the private knobs, as in ``distributed_count_table``) expects. The
+    batch cursor carries over as consumed reads, so ``cfg.batch_reads``
+    must give a global batch that divides them. reads_shape: (num_reads,
+    read_len) of the original read set.
     """
     b, length = reads_shape
     arrays, next_batch, got = load_sharded_stream_checkpoint(path_in)
@@ -480,7 +510,7 @@ def reshard_sharded_stream_checkpoint(
             "resharded (the counts are already unreliable)"
         )
     plan = _StreamPlan(b, length, cfg, new_d, None, None, table_capacity,
-                       bucketed, _buckets, _bucket_accum)
+                       bucketed, _buckets, _bucket_accum, merge_stride)
     consumed = next_batch * got["batch_total"]
     if consumed % plan.batch_total:
         raise ValueError(
@@ -644,12 +674,13 @@ def _run_distributed_stream(
     table_capacity: int | None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
-    bucketed: str = "auto", _buckets: int | None = None,
-    _bucket_accum: int | None = None,
+    bucketed: str = "auto", merge_stride: int | None = None,
+    _buckets: int | None = None, _bucket_accum: int | None = None,
 ) -> list[CountTable]:
     """Stream batches of ``cfg.batch_reads`` global reads through
     :func:`make_distributed_stream_count` (or, where the plan is bucketed,
-    :func:`make_distributed_stream_count_bucketed`) into carried per-shard
+    :func:`make_distributed_stream_count_bucketed`; under a merge stride,
+    :func:`make_distributed_stream_append`) into carried per-shard
     tables.
 
     table_capacity bounds the GLOBAL unique k-mers; each shard gets
@@ -658,23 +689,34 @@ def _run_distributed_stream(
     bucketed / _buckets / _bucket_accum: the shard tables' layout, as in
     ``models.pipeline.count_reads_device``; a bucketed shard table flattens
     to the flat one at the end, so the result is the same either way.
+    merge_stride: deferred merges, as in ``count_reads_device``: each
+    shard's received keys wait in its own ``PendingKeys`` buffer, and every
+    shard merges them locally once per stride batches (and the tail).
 
     stream_checkpoint + stream_checkpoint_every=N snapshot the shard
     tables and the batch cursor once N batches have passed (in the
-    bucketed layout: at the next merge); resume_stream_from continues from
-    such a snapshot (same mesh size, k, batching, capacity, routing and
-    layout, enforced). abort_after_batch=n raises after n batches of this
-    call (the tests' stand-in for a killed run).
+    bucketed layout or under a stride: at the next merge);
+    resume_stream_from continues from such a snapshot (same mesh size, k,
+    batching, capacity, stride, routing and layout, enforced).
+    abort_after_batch=n raises after n batches of this call (the tests'
+    stand-in for a killed run).
     """
     d = axis_size(mesh)
     b, length = reads.shape
     plan = _StreamPlan(b, length, cfg, d, bucket_cap, minimizer_len,
-                       table_capacity, bucketed, _buckets, _bucket_accum)
+                       table_capacity, bucketed, _buckets, _bucket_accum,
+                       merge_stride)
+    if metrics is not None and merge_stride is not None:
+        metrics.count("merge_stride", plan.stride)
     any_invalid = has_ambiguous(reads)
     a2a_step = _a2a_count_bytes_per_step(d, cfg.k, plan.bucket_cap,
                                          minimizer_len)
-    make_step = (make_distributed_stream_count if plan.buckets is None
-                 else make_distributed_stream_count_bucketed)
+    if plan.stride > 1:
+        make_step = make_distributed_stream_append
+    elif plan.buckets is None:
+        make_step = make_distributed_stream_count
+    else:
+        make_step = make_distributed_stream_count_bucketed
     step = make_step(
         mesh, cfg.k, plan.per_dev, length, plan.bucket_cap, minimizer_len
     )
@@ -701,6 +743,15 @@ def _run_distributed_stream(
                   for dev in mesh.devices]
     streams = (None if plan.buckets is None
                else [BucketedStream(t, plan.buckets) for t in tables])
+    pendings = None
+    if plan.stride > 1:
+        pendings = [PendingKeys(plan.stride, plan.stride * plan.recv,
+                                n_limbs(cfg.k), dev) for dev in mesh.devices]
+
+    def merge_pending():
+        for s_ in range(len(tables)):
+            tables[s_] = pendings[s_].merge(
+                tables[s_], None if streams is None else streams[s_])
 
     def save(next_batch):
         save_sharded_stream_checkpoint(
@@ -717,13 +768,19 @@ def _run_distributed_stream(
     for i, packed, inv, n_valid in _stream_batches(
         mesh, reads, plan, start_batch, any_invalid, metrics
     ):
-        if streams is None:
+        if pendings is not None:
+            if step(pendings, packed, n_valid, inv):
+                merge_pending()
+        elif streams is None:
             tables = step(tables, packed, n_valid, inv)
         else:
             step(streams, packed, n_valid, inv)
         if metrics is not None:
             metrics.count("a2a_bytes_count", a2a_step)
-        cursor.after(i, streams is None or streams[0].at_boundary)
+        cursor.after(i, (pendings is None or pendings[0].at_boundary)
+                     and (streams is None or streams[0].at_boundary))
+    if pendings is not None and not pendings[0].at_boundary:
+        merge_pending()
     if streams is not None:
         tables = [st.finish(plan.c_shard) for st in streams]
     if bool(any_reduce(mesh, [t.overflow for t in tables])):
@@ -741,13 +798,13 @@ def _run_distributed_step(
     table_capacity: int | None = None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, *, abort_after_batch: int = 0,
-    bucketed: str = "auto", _buckets: int | None = None,
-    _bucket_accum: int | None = None,
+    bucketed: str = "auto", merge_stride: int | None = None,
+    _buckets: int | None = None, _bucket_accum: int | None = None,
 ) -> list[CountTable]:
     """Count over the mesh -> per-shard tables. Streams once a shard's
     window count exceeds DIST_STREAM_WINDOWS (or to resume); below it one
-    step counts the whole read set, and the streaming checkpoint and
-    layout options do not apply."""
+    step counts the whole read set, and the streaming checkpoint, layout
+    and stride options do not apply."""
     d = axis_size(mesh)
     b, length = reads.shape
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
@@ -760,7 +817,8 @@ def _run_distributed_step(
             reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity,
             metrics, stream_checkpoint, stream_checkpoint_every,
             resume_stream_from, abort_after_batch=abort_after_batch,
-            bucketed=bucketed, _buckets=_buckets, _bucket_accum=_bucket_accum,
+            bucketed=bucketed, merge_stride=merge_stride, _buckets=_buckets,
+            _bucket_accum=_bucket_accum,
         )
     if per_dev * d != b:
         reads = np.concatenate(
@@ -796,12 +854,13 @@ def distributed_count_table(
     table_capacity: int | None = None, metrics: Metrics | None = None,
     stream_checkpoint: str | None = None, stream_checkpoint_every: int = 0,
     resume_stream_from: str | None = None, abort_after_batch: int = 0,
-    bucketed: str = "auto", _buckets: int | None = None,
-    _bucket_accum: int | None = None,
+    bucketed: str = "auto", merge_stride: int | None = None,
+    _buckets: int | None = None, _bucket_accum: int | None = None,
 ) -> CountTable:
     """Count reads over the mesh; merge the shard tables into one
     CountTable on shard 0's device. ``bucketed`` (and its private knobs)
-    pick the streamed shard tables' layout (``_run_distributed_stream``).
+    and ``merge_stride`` pick the streamed shard tables' layout and merge
+    cadence (``_run_distributed_stream``).
 
     Shards own disjoint hash classes, not key ranges, so the gathered
     rows re-count once with their counts as weights: a re-sort into the
@@ -815,7 +874,8 @@ def distributed_count_table(
         reads, cfg, mesh, bucket_cap, minimizer_len, table_capacity, metrics,
         stream_checkpoint, stream_checkpoint_every, resume_stream_from,
         abort_after_batch=abort_after_batch, bucketed=bucketed,
-        _buckets=_buckets, _bucket_accum=_bucket_accum,
+        merge_stride=merge_stride, _buckets=_buckets,
+        _bucket_accum=_bucket_accum,
     )
     limbs = all_gather(mesh, [t.limbs for t in tables])
     counts = all_gather(mesh, [t.counts for t in tables])
@@ -842,6 +902,7 @@ def assemble_distributed(
     table_capacity: int | None = None,
     stream_checkpoint_every: int = 0,
     bucketed: str = "auto",
+    merge_stride: int | None = None,
 ):
     """End-to-end assembly with the count sharded over ``mesh`` (default:
     one shard per visible GPU): the gathered genome-sized table then runs
@@ -855,9 +916,9 @@ def assemble_distributed(
     (either package's format). With stream_checkpoint_every=N > 0 the
     streaming counter also snapshots the shard tables and the batch
     cursor to ``checkpoint`` every N batches; resume_from detects such a
-    snapshot and continues counting from it. bucketed: the streamed
-    shard tables' layout (``"auto"``, ``"on"``, ``"off"``; the same table
-    either way).
+    snapshot and continues counting from it. bucketed, merge_stride: the
+    streamed shard tables' layout (``"auto"``, ``"on"``, ``"off"``) and
+    merge cadence; the same table either way.
     """
     if emit not in ("unitigs", "euler"):
         raise ValueError(f"emit must be 'unitigs' or 'euler', got {emit!r}")
@@ -883,7 +944,7 @@ def assemble_distributed(
                 ),
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
-                bucketed=bucketed,
+                bucketed=bucketed, merge_stride=merge_stride,
             )
     out = assemble_from_table(
         table, cfg, m, dev, emit=emit,
@@ -1002,6 +1063,7 @@ def assemble_distributed_sharded(
     table_capacity: int | None = None,
     stream_checkpoint_every: int = 0,
     bucketed: str = "auto",
+    merge_stride: int | None = None,
 ):
     """Fully sharded assembly: the graph never gathers onto one device.
 
@@ -1018,8 +1080,9 @@ def assemble_distributed_sharded(
     match on resume). With stream_checkpoint_every=N > 0 the streaming
     counter also snapshots the shard tables and the batch cursor to
     ``checkpoint`` every N batches; resume_from detects such a snapshot
-    and continues counting from it. bucketed: the streamed shard tables'
-    layout, as in ``assemble_distributed``.
+    and continues counting from it. bucketed, merge_stride: the streamed
+    shard tables' layout and merge cadence, as in
+    ``assemble_distributed``.
     """
     if cfg.k % 2 == 0:
         raise ValueError("sharded compression requires odd k")
@@ -1044,7 +1107,7 @@ def assemble_distributed_sharded(
                 m, checkpoint if stream_checkpoint_every > 0 else None,
                 stream_checkpoint_every,
                 resume_from if resume_stream else None,
-                bucketed=bucketed,
+                bucketed=bucketed, merge_stride=merge_stride,
             )
     if checkpoint is not None:
         save_sharded_table(tables, d, cfg.k, checkpoint, mesh)

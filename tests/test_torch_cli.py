@@ -234,9 +234,11 @@ def test_verbose_logs_the_stages(reads_file, tmp_path, caplog):
 
 
 def test_flags_that_the_port_does_not_have():
-    for flag in ("--pallas", "--merge-stride"):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(["assemble", flag, "1"])
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["assemble", "--pallas", "1"])
+    # the merge stride is the port's too since deferred merges came over
+    assert cli.build_parser().parse_args(
+        ["assemble", "--merge-stride", "2"]).merge_stride == 2
     with pytest.raises(ValueError, match="--backend dist"):
         cli.cmd_assemble(cli.build_parser().parse_args(
             ["assemble", "--preset", "toy10k", "--device", "cpu",

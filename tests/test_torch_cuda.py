@@ -244,6 +244,32 @@ def test_bucketed_count_on_cuda_matches_cpu(cuda_device, monkeypatch):
     assert torch.equal(got.counts[:n].cpu(), want.counts[:n])
 
 
+@pytest.mark.parametrize("layout", ["off", "on"])
+def test_strided_count_on_cuda_matches_cpu(cuda_device, monkeypatch, layout):
+    """Deferred merges on the card (stride 3, a short last batch, a tail of
+    two batches), one device and 4 shards: the table equals the CPU's at
+    stride 1."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)[:2350]
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=500)
+    want = count_reads_device(reads, cfg, device="cpu", table_capacity=65536,
+                              bucketed="off")
+    got = count_reads_device(reads, cfg, device=cuda_device,
+                             table_capacity=65536, bucketed=layout,
+                             merge_stride=3)
+    assert _tables_equal(_to_cpu(got), want)
+    monkeypatch.setattr(pipeline, "DIST_STREAM_WINDOWS", 0)
+    got = pipeline.distributed_count_table(
+        reads, cfg, mesh.build_mesh(4), table_capacity=65536,
+        bucketed=layout, merge_stride=3)
+    n = int(want.num_unique)
+    assert int(got.num_unique) == n
+    assert torch.equal(got.limbs[:n].cpu(), want.limbs[:n])
+    assert torch.equal(got.counts[:n].cpu(), want.counts[:n])
+
+
 def _to_cpu(table):
     return type(table)(*(x.cpu() for x in table))
 

@@ -119,6 +119,22 @@ def test_gathered_table_equals_single_device_and_oracle(
     )
 
 
+@pytest.mark.parametrize("stride", [1, 2], ids=["per_batch", "stride_2"])
+@pytest.mark.parametrize("streamed", [False, True], ids=["one_shot", "streamed"])
+def test_host_counts_equal_jax_distributed_count_to_host(
+        reads, monkeypatch, streamed, stride):
+    """The JAX package's ``distributed_count_to_host`` has no port (nothing
+    calls it): ``table_to_host_counts(distributed_count_table(...))`` is
+    the same dict."""
+    if streamed:
+        monkeypatch.setattr(pp, "DIST_STREAM_WINDOWS", 0)
+        monkeypatch.setattr(jax_pp, "DIST_STREAM_WINDOWS", 0)
+    kw = dict(table_capacity=4096, merge_stride=stride)
+    want = jax_pp.distributed_count_to_host(reads, CFG, jax_mesh(4), **kw)
+    table = pp.distributed_count_table(reads, CFG, cpu_mesh(4), **kw)
+    assert pipeline.table_to_host_counts(table, K) == want
+
+
 @pytest.mark.parametrize("minimizer", [None, 11], ids=["per_window", "minimizer"])
 def test_mesh_over_two_devices(reads, single_device_table, monkeypatch,
                                minimizer):

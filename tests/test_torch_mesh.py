@@ -194,9 +194,10 @@ def _expect_stop(fn):
         raise AssertionError("the injected stop did not happen")
 
 
-def case_ckpt_stream(dmesh, flat, out, **layout):
+def case_ckpt_stream(dmesh, flat, out, at=2, **layout):
     """A mid-stream checkpoint written by the ranks against one written by
-    the single-process mesh: equal files, and each resumes on the other."""
+    the single-process mesh: equal files (the snapshot after ``at``
+    batches), and each resumes on the other."""
     reads = small_reads()
     cfg = AssemblyConfig(k=25, read_len=80, batch_reads=96)
 
@@ -205,7 +206,7 @@ def case_ckpt_stream(dmesh, flat, out, **layout):
             reads, cfg, mesh, None, None, 8192, **kw, **layout)
 
     full = run(flat)
-    tag = "_bucketed" if layout else ""
+    tag = "".join(f"_{name}" for name in sorted(layout))
     by_ranks = f"{out}.stream_ranks{tag}.npz"
     by_flat = f"{out}.stream_flat{tag}.rank{dmesh.rank}.npz"
     for mesh, path in ((dmesh, by_ranks), (flat, by_flat)):
@@ -214,7 +215,7 @@ def case_ckpt_stream(dmesh, flat, out, **layout):
             abort_after_batch=3))
     _assert_files_equal(by_ranks, by_flat)
     with np.load(by_ranks) as z:
-        assert int(z["next_batch"]) == 2 and int(z["d"]) == D
+        assert int(z["next_batch"]) == at and int(z["d"]) == D
     _assert_tables_equal(run(flat, resume_stream_from=by_ranks), full)
     _assert_tables_equal(run(dmesh, resume_stream_from=by_flat),
                          _local(dmesh, full))
@@ -255,6 +256,16 @@ CASES = {
         *a, bucketed="on", _buckets=8, _bucket_accum=2),
     "checkpoint_hash_shards": case_ckpt_hash_shards,
 }
+# deferred merges (``tests/test_torch_merge_stride.py`` runs these as two
+# ranks, ``--job strided``): stride 3 over the 7 batches of 96 reads
+STRIDED_CASES = {
+    "tables_k25_streamed_strided": lambda *a: case_tables(
+        *a, 25, None, True, merge_stride=3),
+    "tables_k25_streamed_strided_bucketed": lambda *a: case_tables(
+        *a, 25, None, True, merge_stride=3, bucketed="on", _buckets=8),
+    "checkpoint_stream_strided": lambda *a: case_ckpt_stream(
+        *a, at=3, merge_stride=3),
+}
 
 
 def rank_main(argv) -> int:
@@ -277,11 +288,12 @@ def rank_main(argv) -> int:
     if args.job == "sleep":
         time.sleep(600)
         return 0
-    assert args.job == "checks"
+    assert args.job in ("checks", "strided")
     assert dmesh.distributed and dmesh.size == D
     assert mesh_mod.num_hosts(dmesh) == int(os.environ["WORLD_SIZE"])
     verdicts = {}
-    for name, case in CASES.items():
+    cases = CASES if args.job == "checks" else STRIDED_CASES
+    for name, case in cases.items():
         try:
             case(dmesh, flat_mesh(D, dmesh.devices[0]), args.out)
             verdicts[name] = None
