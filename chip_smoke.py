@@ -110,12 +110,25 @@ result line:
      equal to stride 1's; a stride-3 stop and resume on CFG-2's reads,
      one device and 4 shards, and the 4-shard snapshot resharded to 2
      shards and resumed.
+ 17. the entry points beyond the library, each a subprocess on the card
+     after this process frees its cached memory: ``bench_torch.py`` at its
+     defaults (1 Mb, 25x, k=31: 250,000 reads, 17.5M windows) must give
+     ``exact_match``, a value above 0, ``min_traffic_roofline_frac`` below
+     1, the kernel equal to its plain version at the bench's shape and
+     within ten times its bound, and the streamed table equal to the single
+     shot; ``tools/run_large_torch.py 40 25 31 --reps 1`` (40 Mb, 25x:
+     10,000,000 reads, 700M windows, a table of 50,331,648 rows) must give
+     one contig of 40,000,000 bases equal to the genome,
+     ``exact_kmer_content``, and two launches a batch (cold and warm). Both
+     JSON lines and the phase's seconds are printed.
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
 phase's ring run, the acceptance runners, the multi-process ranks, the
-bucketed counts of phase 15 and the strided counts of phase 16, and
-given for each in ``launches_by_path``); the last line is
+bucketed counts of phase 15, the strided counts of phase 16, and
+phase 17's bench (its count, streamed and assembly legs; not the launches
+that check and time the kernel) and 40 Mb run, and given for each in
+``launches_by_path``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
 """
@@ -132,11 +145,6 @@ import time
 KERNEL_SOURCE = "genome_assembler_tpu_torch/csrc/kmer_extract.cu"
 KERNEL_REPLACES = "genome_assembler_tpu/ops/kmer_pallas.py:35"
 MAIN_BATCH = (262_144, 100, 31)  # reads, read length, k of one CFG-2 batch
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# No integer rate is published; the float32 rate outside the tensor cores
-# stands in (half of it would not change which bound is the larger).
-INT_OPS_PER_S = 67e12
-OPS_PER_WINDOW_LIMB = 8  # 2 shifts, 2 ors, mask, complement, compare, select
 
 # Edge shapes of the kernel's block layout: (reads, read length, k,
 # n_valid, share of Ns). Reads 1 and 2 of each case (where there are
@@ -175,16 +183,11 @@ def log(msg: str) -> None:
 
 
 def card_info(torch) -> str:
+    from genome_assembler_tpu_torch.utils.device import card_line
+
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "--id=0"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0]
     log(f"device: {name}")
-    log(line)
+    log(card_line(torch.device("cuda", 0)))
     return name
 
 
@@ -226,23 +229,6 @@ def time_cuda(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def kernel_bound_ms(b, length, k, with_inv):
-    """The least time the card could take for one extraction: the larger
-    of bytes over the memory rate (packed codes and invalid bits read
-    once, key limbs written once) and integer operations over their
-    rate. Returns (ms, "bytes" or "operations", bytes)."""
-    limbs = 1 if k <= 31 else 2
-    windows = b * (length - k + 1)
-    nbytes = windows * limbs * 8 + b * ((length + 3) // 4)
-    if with_inv:
-        nbytes += b * ((length + 7) // 8)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = windows * limbs * OPS_PER_WINDOW_LIMB / INT_OPS_PER_S * 1e3
-    if bytes_ms >= ops_ms:
-        return bytes_ms, "bytes", nbytes
-    return ops_ms, "operations", nbytes
 
 
 def check_trap_shapes(torch, ref, kmer, dev) -> int:
@@ -323,12 +309,13 @@ def phase_kernel(torch, ref, kmer, dev):
     plain_ms = time_cuda(
         torch, lambda: kmer.extract_canonical_flat_ref(packed, length, k), 5
     )
-    bound_ms, bound_by, nbytes = kernel_bound_ms(b, length, k, False)
+    bound_ms, bound_by, nbytes = kmer.kernel_bound_ms(b, length, k, False)
     windows = b * (length - k + 1)
     log(f"kernel main batch {b}x{length} k={k}: bit-equal; kernel "
         f"{ms:.4f} ms ({windows / ms / 1e6:.1f} G windows/s, "
         f"{nbytes / ms / 1e9:.3f} TB/s), bound {bound_ms:.4f} ms ({nbytes} "
-        f"bytes at {HBM_BYTES_PER_S / 1e12} TB/s; {ms / bound_ms:.2f}x), "
+        f"bytes at {kmer.HBM_PEAK_BYTES_S / 1e12} TB/s; "
+        f"{ms / bound_ms:.2f}x), "
         f"plain torch {plain_ms:.4f} ms")
     return worst, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                    "bound_by": bound_by}
@@ -1408,6 +1395,66 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     return launches
 
 
+def run_entry_point(args: list[str], limit_s: float) -> tuple[dict, float]:
+    """One entry point of the checkout as a subprocess from its root:
+    (its JSON line, seconds). The line is printed as it came."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=root,
+                          capture_output=True, text=True, timeout=limit_s)
+    check(proc.returncode == 0, f"{' '.join(args)} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    line = proc.stdout.strip().splitlines()[-1]
+    log(line)
+    return json.loads(line), time.perf_counter() - t0
+
+
+def phase_entry_points() -> dict:
+    """Phase 17: bench_torch.py at its defaults and the 40 Mb run of
+    tools/run_large_torch.py on the card; returns their main-path launches."""
+    t0 = time.perf_counter()
+    bench, bench_s = run_entry_point(["bench_torch.py"], 600)
+    d = bench["detail"]
+    check(d["backend"] == "cuda" and bench["value"] > 0,
+          f"bench_torch: backend {d['backend']}, value {bench['value']}")
+    check(d["exact_match"] is True, "bench_torch: contigs != genome")
+    check(d["extract_equal"] is True and d["stream_table_equal"] is True,
+          "bench_torch: kernel or streamed table differ from the plain ones")
+    frac = d["min_traffic_roofline_frac"]
+    check(0 < frac < 1, f"bench_torch: min_traffic_roofline_frac {frac}")
+    ratio = d["extract_kernel_s"] / d["extract_bound_s"]
+    check(ratio < 10, f"bench_torch: kernel at {ratio:.2f}x its bound")
+    log(f"bench_torch: {bench['value']:.6g} kmers/s "
+        f"({bench['vs_baseline']:.6g}x the dict counter), best "
+        f"{d['best_s']:.6g} s, sort floor {d['sort_floor_s']:.6g} s "
+        f"({d['frac_of_sort_floor']:.4f} of the count), kernel "
+        f"{d['extract_kernel_s'] * 1e3:.4f} ms = {ratio:.2f}x its bound; "
+        f"{bench_s:.1f} s")
+    large, large_s = run_entry_point(
+        [os.path.join("tools", "run_large_torch.py"), "40", "25", "31",
+         "--reps", "1"], 900)
+    check(large["exact_single_contig"] is True
+          and large["exact_kmer_content"] is True,
+          f"40 Mb run: exact_single_contig {large['exact_single_contig']}, "
+          f"exact_kmer_content {large['exact_kmer_content']}")
+    check(large["contigs"] == 1 and large["n50"] == 40_000_000,
+          f"40 Mb run: {large['contigs']} contigs, n50 {large['n50']}")
+    batches = -(-large["reads"] // 262_144)
+    check(large["extract_launches"] == 2 * batches,
+          f"40 Mb run: {large['extract_launches']} launches for two runs of "
+          f"{batches} batches")
+    log(f"40 Mb run: cold {large['cold_s']:.6g} s, warm {large['warm_s']:.6g}"
+        f" s, peak {large['peak_gib']:.4g} GiB, "
+        f"{'bucketed' if large['bucketed'] else 'flat'} at "
+        f"{large['merge_rows']} rows a merge; {large_s:.1f} s")
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return {
+        "bench_torch": sum(n for leg, n in d["extract_launches"].items()
+                           if leg != "extraction"),
+        "run_large_40mb": large["extract_launches"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1462,6 +1509,8 @@ def main() -> int:
     by_path.update(phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer,
                                 cfg4, cfg2_reads, cfg2_cap, dev))
     del cfg4, cfg4_reads, cfg2_reads
+    torch.cuda.empty_cache()  # the entry points run as processes of their own
+    by_path.update(phase_entry_points())
     foreign = sorted(
         name for name in sys.modules
         if name == "jax" or name.startswith("jax.")

@@ -43,6 +43,13 @@ from typing import NamedTuple
 import torch
 
 from ..utils.keys import INT64_MIN, SENTINEL, lsr, n_limbs
+from ..utils.metrics import HBM_PEAK_BYTES_S
+
+# The kernel's operation bound: no integer rate is published for the H100,
+# so the float32 rate outside the tensor cores stands in (half of it would
+# not change which bound is the larger), at a fixed count a window limb.
+INT_OPS_PER_S = 67e12
+OPS_PER_WINDOW_LIMB = 8  # 2 shifts, 2 ors, mask, complement, compare, select
 
 
 def unpack_codes(packed: torch.Tensor, read_len: int) -> torch.Tensor:
@@ -274,6 +281,26 @@ def extract_canonical_flat(
     return launch_kernel(
         packed, read_len, k, n_valid, inv_bits, launch_plan(read_len, k)
     )
+
+
+def kernel_bound_ms(
+    b: int, read_len: int, k: int, with_inv: bool
+) -> tuple[float, str, int]:
+    """The least time the card could take for one extraction of ``b``
+    reads: the larger of the bytes over the memory rate (packed codes and
+    invalid bits read once, key limbs written once) and the integer
+    operations over their rate. Returns (ms, ``"bytes"`` or
+    ``"operations"``, bytes)."""
+    nl = n_limbs(k)
+    windows = b * (read_len - k + 1)
+    nbytes = windows * nl * 8 + b * ((read_len + 3) // 4)
+    if with_inv:
+        nbytes += b * ((read_len + 7) // 8)
+    bytes_ms = nbytes / HBM_PEAK_BYTES_S * 1e3
+    ops_ms = windows * nl * OPS_PER_WINDOW_LIMB / INT_OPS_PER_S * 1e3
+    if bytes_ms >= ops_ms:
+        return bytes_ms, "bytes", nbytes
+    return ops_ms, "operations", nbytes
 
 
 def launch_kernel(packed, read_len, k, n_valid, inv_bits, plan: LaunchPlan):

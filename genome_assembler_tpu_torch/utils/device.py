@@ -8,6 +8,8 @@ cannot silently measure the CPU instead.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -40,3 +42,21 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued work on ``device`` (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card_line(device: torch.device) -> str | None:
+    """``nvidia-smi``'s name and power limit of a CUDA device, as
+    ``--query-gpu=name,power.limit --format=csv,noheader`` prints them
+    (for example ``NVIDIA H100 80GB HBM3, 700.00 W``); None for the CPU.
+    Every number measured on a card is reported beside this line. Raises
+    RuntimeError when ``nvidia-smi`` fails."""
+    if device.type != "cuda":
+        return None
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+         f"--id={0 if device.index is None else device.index}"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if proc.returncode != 0 or not proc.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {proc.stderr.strip()}")
+    return proc.stdout.strip().splitlines()[0]

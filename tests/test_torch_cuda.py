@@ -410,3 +410,53 @@ def test_nccl_ranks_equal_single_process_mesh(tmp_path, world):
             verdicts = json.load(fh)
         assert verdicts and all(v is None for v in verdicts.values()), {
             k: v for k, v in verdicts.items() if v is not None}
+
+
+def _load_script(*parts):
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), *parts)
+    spec = importlib.util.spec_from_file_location(parts[-1][:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bench_torch_on_the_card(cuda_device):
+    """``bench_torch.py`` at 100 kb, 10x, one rep: the kernel equal to its
+    plain version at the bench's shape, the streamed table equal to the
+    single shot, the contig equal to the genome, the roofline share below
+    one, and the kernel's launches by leg."""
+    bench = _load_script("bench_torch.py")
+    line = bench.run(bench.parse_args([
+        "--genome-len", "100000", "--coverage", "10", "--reps", "1",
+        "--baseline-windows", "2000"]))
+    d = line["detail"]
+    assert d["backend"] == "cuda" and d["card"] and d["build_s"] is not None
+    assert d["extract_equal"] is True and d["stream_table_equal"] is True
+    assert d["exact_match"] is True and d["contigs"] == 1
+    assert 0 < d["min_traffic_roofline_frac"] < 1
+    assert d["extract_kernel_s"] > 0 and d["extract_bound_s"] > 0
+    # count: warm-up + 1 rep; extraction: the check, a warm-up, 20 timed;
+    # stream: 2 two-batch streamed counts and 2 single shots; assemble:
+    # cold and warm, one shot each
+    assert d["extract_launches"] == {
+        "count": 2, "extraction": 22, "stream": 6, "assemble": 2}
+
+
+def test_run_large_torch_on_the_card(cuda_device):
+    """``tools/run_large_torch.py`` at 0.2 Mb, 25x: one contig equal to
+    the genome, the k-mer content check on the card equal to the CPU's,
+    the peak memory and the launches of the cold and warm runs."""
+    tool = _load_script("tools", "run_large_torch.py")
+    line = tool.run(tool.parse_args(["0.2", "25", "31"]))
+    assert line["contigs"] == 1 and line["n50"] == 200_000
+    assert line["exact_single_contig"] is True
+    assert line["exact_kmer_content"] is True
+    assert line["peak_gib"] > 0 and line["extract_launches"] == 2
+    seq = ref.decode_seq(ref.simulate_genome(30_000, seed=9))
+    for k in (31, 41):
+        assert torch.equal(tool.canonical_keys(seq, k, cuda_device).cpu(),
+                           tool.canonical_keys(seq, k, torch.device("cpu")))

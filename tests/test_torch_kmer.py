@@ -150,3 +150,27 @@ def test_launch_plan_refuses_rows_that_do_not_fit_a_block():
     # the refusal is the plan's, whatever the device: a CPU tensor still
     # goes through the plain version, which has no such limit
     assert kmer_torch.launch_plan(100, 31).reads_per_block == 60
+
+
+@pytest.mark.parametrize(
+    "shape, want",
+    [
+        # the main batch: 262,144 reads x 100 bp, k=31, no invalid bits
+        ((262_144, 100, 31, False), (146_800_640 + 6_553_600, "bytes")),
+        # invalid bits add ceil(L/8) bytes a read; two limbs at k=41
+        ((1000, 100, 41, True), (1000 * 60 * 16 + 1000 * 25 + 1000 * 13,
+                                 "bytes")),
+    ],
+    ids=["main_batch", "two_limbs_with_bits"],
+)
+def test_kernel_bound(shape, want):
+    """The extraction's bound: every input byte read once, every key limb
+    written once, over the H100's 3.35 TB/s (the larger bound here)."""
+    ms, by, nbytes = kmer_torch.kernel_bound_ms(*shape)
+    assert (nbytes, by) == want
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    b, length, k, _ = shape
+    ops = (b * (length - k + 1) * (1 if k <= 31 else 2)
+           * kmer_torch.OPS_PER_WINDOW_LIMB)
+    ops_ms = ops / kmer_torch.INT_OPS_PER_S * 1e3
+    assert ops_ms < ms

@@ -19,7 +19,9 @@ FOREIGN = ("jax", "genome_assembler_tpu")
 SOURCES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-) + ["chip_smoke.py", os.path.join("tools", "probe_kmer_extract.py"),
+) + ["chip_smoke.py", "bench_torch.py",
+     os.path.join("tools", "run_large_torch.py"),
+     os.path.join("tools", "probe_kmer_extract.py"),
      os.path.join("tools", "probe_upload.py"),
      os.path.join("tools", "probe_mesh.py")]
 
@@ -69,6 +71,8 @@ def test_every_port_module_is_walked():
                  "genome_assembler_tpu_torch/utils/upload.py",
                  "genome_assembler_tpu_torch/utils/metrics.py",
                  "tools/probe_upload.py",
+                 "bench_torch.py",
+                 "tools/run_large_torch.py",
                  "tools/probe_mesh.py",
                  "genome_assembler_tpu_torch/parallel/mesh.py",
                  "genome_assembler_tpu_torch/parallel/launch.py",

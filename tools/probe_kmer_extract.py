@@ -102,7 +102,7 @@ def main() -> int:
         device_us = [e.self_device_time_total / e.count
                      for e in prof.key_averages()
                      if "extract_canonical_kernel" in e.key]
-        bound, by, nbytes = cs.kernel_bound_ms(b, length, k, inv is not None)
+        bound, by, nbytes = kmer.kernel_bound_ms(b, length, k, inv is not None)
         row = {"case": name, "reads": b, "read_len": length, "k": k,
                "invalid_bits": inv is not None, "plan": list(plan),
                "own_plan": plan == kmer.launch_plan(length, k), "ms": ms,
