@@ -369,8 +369,9 @@ def cmd_assemble(args) -> int:
     contigs, coverages = _graph_outputs(args, graph)
     dt = time.perf_counter() - t0
     if args.metrics_out:
-        # Metrics.report() as the reference writes it (stages_s, counters,
-        # derived), and beside it where the run was placed
+        # Metrics.report(): the reference's (stages_s, counters, derived)
+        # and the host spans inside the stages (spans_s), and beside it
+        # where the run was placed
         import json
 
         from .ops.kmer_torch import extract_canonical_flat
@@ -504,7 +505,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "counter's table and batch cursor every N batches")
     pa.add_argument("--metrics-out", default=None,
                     help="write the per-stage metrics JSON here (stages_s, "
-                    "counters, derived rates, the extraction kernel's "
+                    "counters, derived rates, spans_s with the host's "
+                    "work inside the stages, the extraction kernel's "
                     "launches; torch and dist backends; in a multi-process "
                     "run rank r > 0 writes PATH.rank<r>)")
     pa.add_argument("--stats", action="store_true",

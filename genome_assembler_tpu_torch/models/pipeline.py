@@ -29,8 +29,6 @@ device (``PendingKeys``) and merge at once, in either layout.
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -42,7 +40,7 @@ from ..host.simplify_arrays import simplify_arrays_to_graph
 from ..host.traverse import emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
 from ..utils.dna import has_ambiguous
-from ..utils.metrics import Metrics, log
+from ..utils.metrics import Metrics
 
 from ..host.dbg import spell_device_arrays
 from ..ops import count_torch
@@ -64,7 +62,7 @@ from ..ops.kmer_torch import (
     pack_invalid_device,
 )
 from ..ops.unitig_torch import compress_unitigs_device
-from ..utils.device import resolve_device, synchronize
+from ..utils.device import resolve_device
 from ..utils.keys import SENTINEL, limbs_to_words, n_limbs
 from ..utils.upload import UploadRing
 
@@ -90,26 +88,11 @@ BUCKET_CB_SLACK = 1.25
 BUCKET_M_SLACK = 1.5
 
 
-@contextlib.contextmanager
 def timed_stage(m: Metrics, name: str, devices, after=None):
-    """Wall time of one stage, closed by a synchronise of ``devices`` (one
-    device or several; every stream of each, the copy streams too) so
-    queued work is charged to the stage that queued it. ``after`` runs
-    inside the stage once the devices are idle (a multi-process mesh
-    passes its barrier, so a stage ends with its slowest process). The
-    stage is a ``record_function`` span of a profiler trace."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
-        yield
-        if isinstance(devices, torch.device):
-            devices = [devices]
-        for dev in dict.fromkeys(devices):
-            synchronize(dev)
-        if after is not None:
-            after()
-    dt = time.perf_counter() - t0
-    m.stages[name] = m.stages.get(name, 0.0) + dt
-    log.debug("stage %s: %.3fs", name, dt)
+    """``m.stage(name, devices, after)``: the stage's wall time, closed by
+    a synchronise of ``devices`` (every stream of each, the copy streams
+    too) and then ``after`` (a multi-process mesh's barrier)."""
+    return m.stage(name, devices, after)
 
 
 def pack_on_device(codes: torch.Tensor, has_invalid: bool):
@@ -452,7 +435,12 @@ def count_reads_device(
     windows, and the bucketed layout merges once per s batches
     (accumulation 1). The table is the same at any stride. ``metrics``
     (if given) counts the stride a streamed count took as
-    ``merge_stride`` where one was asked for.
+    ``merge_stride`` where one was asked for, and adds up the count's
+    host spans: ``count.scan`` (the N scan), ``count.setup`` (entry to
+    the first batch), ``count.fill`` and ``count.step`` (each batch's
+    copy into host memory, and its pack, extraction and merge as
+    enqueued), ``count.wait`` (the ring blocked on a copy) and
+    ``count.finish`` (the tail merge).
 
     stream_checkpoint + stream_checkpoint_every=N: once N streamed batches
     have passed (in the bucketed layout or under a stride: at the next
@@ -465,10 +453,12 @@ def count_reads_device(
     stand-in for a killed run).
     """
     device = resolve_device(device)
+    m = metrics if metrics is not None else Metrics()
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
     b, length = reads.shape
     total_windows = b * (length - cfg.k + 1)
-    has_invalid = has_ambiguous(reads)
+    with m.span("count.scan"):
+        has_invalid = has_ambiguous(reads)
     batch = cfg.batch_reads
     starts = range(0, b, batch)
     stride = stride_taken(merge_stride, len(starts))
@@ -479,54 +469,61 @@ def count_reads_device(
                 "resume_stream_from requires the streaming path; pass the "
                 "table_capacity the checkpointed run used"
             )
-        packed, inv = pack_on_device(
-            torch.from_numpy(reads).to(device), has_invalid
-        )
-        return _count_batch(packed, length, cfg.k, inv)
+        with m.span("count.fill"):
+            codes = torch.from_numpy(reads).to(device)
+        with m.span("count.step"):
+            packed, inv = pack_on_device(codes, has_invalid)
+            return _count_batch(packed, length, cfg.k, inv)
 
-    capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
-    bw = batch * (length - cfg.k + 1)
-    if metrics is not None and merge_stride is not None:
-        metrics.count("merge_stride", stride)
-    merge_windows = stride * bw
-    # everything the carried table depends on: the reference's keys
-    ck_params = {
-        "k": cfg.k, "batch": batch, "capacity": capacity, "stride": stride,
-        "total_reads": b,
-        "bucketed": int(use_bucketed(bucketed, capacity + merge_windows)),
-    }
-    plan = None
-    if ck_params["bucketed"]:
-        # under a stride the pending rows merge at once (accumulation 1)
-        plan = bucket_plan(capacity, merge_windows, buckets=_buckets,
-                           accum=1 if stride > 1 else _bucket_accum)
-        ck_params.update(plan._asdict())
-    table = None
-    start_idx = 0
-    if resume_stream_from is not None:
-        table, next_start, got = load_stream_checkpoint(
-            resume_stream_from, device
-        )
-        if got != ck_params:
-            raise ValueError(
-                f"mid-stream checkpoint mismatch: saved {got}, this run has "
-                f"{ck_params}; resume requires identical k/batch/capacity/"
-                "stride/read set/layout"
+    with m.span("count.setup"):
+        capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
+        bw = batch * (length - cfg.k + 1)
+        if merge_stride is not None:
+            m.count("merge_stride", stride)
+        merge_windows = stride * bw
+        # everything the carried table depends on: the reference's keys
+        ck_params = {
+            "k": cfg.k, "batch": batch, "capacity": capacity,
+            "stride": stride, "total_reads": b,
+            "bucketed": int(use_bucketed(bucketed, capacity + merge_windows)),
+        }
+        plan = None
+        if ck_params["bucketed"]:
+            # under a stride the pending rows merge at once (accumulation 1)
+            plan = bucket_plan(capacity, merge_windows, buckets=_buckets,
+                               accum=1 if stride > 1 else _bucket_accum)
+            ck_params.update(plan._asdict())
+        table = None
+        start_idx = 0
+        if resume_stream_from is not None:
+            table, next_start, got = load_stream_checkpoint(
+                resume_stream_from, device
             )
-        start_idx = next_start // batch
-    stream = None
-    if plan is not None:
-        stream = BucketedStream(
-            table if table is not None else empty_bucketed(
-                plan.nb, plan.cb, n_limbs(cfg.k), device),
-            plan,
+            if got != ck_params:
+                raise ValueError(
+                    f"mid-stream checkpoint mismatch: saved {got}, this run "
+                    f"has {ck_params}; resume requires identical k/batch/"
+                    "capacity/stride/read set/layout"
+                )
+            start_idx = next_start // batch
+        stream = None
+        if plan is not None:
+            stream = BucketedStream(
+                table if table is not None else empty_bucketed(
+                    plan.nb, plan.cb, n_limbs(cfg.k), device),
+                plan,
+            )
+        pending = None
+        if stride > 1:
+            pending = PendingKeys(stride, min(merge_windows, total_windows),
+                                  n_limbs(cfg.k), device)
+            if table is None and stream is None:
+                table = count_torch.empty_table(capacity, n_limbs(cfg.k),
+                                                device)
+        ring = UploadRing(
+            [(device, min(batch, b))], [length], depth=UPLOAD_PREFETCH,
+            pipelined=False if _plain_upload else None, metrics=m,
         )
-    pending = None
-    if stride > 1:
-        pending = PendingKeys(stride, min(merge_windows, total_windows),
-                              n_limbs(cfg.k), device)
-        if table is None and stream is None:
-            table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
 
     def save(next_batch):
         save_stream_checkpoint(
@@ -544,35 +541,34 @@ def count_reads_device(
         save=None if stream_checkpoint is None else save,
         abort_after_batch=abort_after_batch,
     )
-    ring = UploadRing(
-        [(device, min(batch, b))], [length], depth=UPLOAD_PREFETCH,
-        pipelined=False if _plain_upload else None,
-    )
+    # the ring's own spans: count.fill (each fill) and count.wait
     with ring:
         for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
-            packed, inv = pack_on_device(codes, has_invalid)
-            if pending is not None:
-                if pending.add(extract_canonical_flat(packed, length, cfg.k,
-                                                      inv_bits=inv)):
-                    table = pending.merge(table, stream)
-            elif stream is not None:
-                stream.add(extract_canonical_flat(packed, length, cfg.k,
-                                                  inv_bits=inv))
-            elif table is None:
-                table = _count_batch(packed, length, cfg.k, inv,
-                                     out_cap=capacity)
-            else:
-                table = _stream_step(table, packed, length, cfg.k, inv)
+            with m.span("count.step"):
+                packed, inv = pack_on_device(codes, has_invalid)
+                if pending is not None:
+                    if pending.add(extract_canonical_flat(
+                            packed, length, cfg.k, inv_bits=inv)):
+                        table = pending.merge(table, stream)
+                elif stream is not None:
+                    stream.add(extract_canonical_flat(packed, length, cfg.k,
+                                                      inv_bits=inv))
+                elif table is None:
+                    table = _count_batch(packed, length, cfg.k, inv,
+                                         out_cap=capacity)
+                else:
+                    table = _stream_step(table, packed, length, cfg.k, inv)
             # the table after batch i, whatever is already uploaded
             cursor.after(i, (pending is None or pending.at_boundary)
                          and (stream is None or stream.at_boundary))
-    if pending is not None and not pending.at_boundary:
-        table = pending.merge(table, stream)
-    if stream is not None:
-        return stream.finish(capacity)
-    if table is None:  # no reads at all
-        table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
-    return table
+    with m.span("count.finish"):
+        if pending is not None and not pending.at_boundary:
+            table = pending.merge(table, stream)
+        if stream is not None:
+            return stream.finish(capacity)
+        if table is None:  # no reads at all
+            table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
+        return table
 
 
 def table_to_host_counts(table: CountTable, k: int) -> dict[str, int]:
@@ -748,10 +744,12 @@ def assemble_torch(
     wc = reads.shape[1] - cfg.k + 1
     m.count("reads", reads.shape[0])
     m.count("kmers", reads.shape[0] * wc)
-    if has_ambiguous(reads):
-        from ..ops.kmer_ref import window_valid_np
+    with m.span("scan"):
+        if has_ambiguous(reads):
+            from ..ops.kmer_ref import window_valid_np
 
-        m.count("masked_windows", int((~window_valid_np(reads, cfg.k)).sum()))
+            m.count("masked_windows",
+                    int((~window_valid_np(reads, cfg.k)).sum()))
     resume_stream = (
         resume_from is not None and is_stream_checkpoint(resume_from)
     )

@@ -641,7 +641,7 @@ def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
         else [(dev, plan.per_dev) for dev in mesh.devices]
     )
     ring = UploadRing(targets, [length], depth=DIST_UPLOAD_PREFETCH,
-                      pipelined=pipelined)
+                      pipelined=pipelined, metrics=metrics)
     with ring:
         for i, blocks in ring.stream(first, plan.num_batches, fill):
             if metrics is not None:

@@ -1,15 +1,17 @@
 """Structured per-stage metrics (SURVEY.md §5 observability).
 
 The port's copy of the reference package's ``utils/metrics.py``: the
-``Metrics`` class as it is there, and ``torch.profiler`` in the place of
-that module's JAX profiler helpers. It emits structured per-stage
-wall-clock + throughput counters consumable by the bench configs
-(BASELINE.md CFG 2-4): k-mers/s, reads/s, bytes/s vs the HBM roofline,
-all-to-all volume, weak-scaling efficiency.
+``Metrics`` class as it is there, plus the host spans inside a stage
+(``span``, ``spans``, the report's ``spans_s``), and ``torch.profiler``
+in the place of that module's JAX profiler helpers. It emits structured
+per-stage wall-clock + throughput counters consumable by the bench
+configs (BASELINE.md CFG 2-4): k-mers/s, reads/s, bytes/s vs the HBM
+roofline, all-to-all volume, weak-scaling efficiency.
 
-Tracing: every stage runs inside ``torch.profiler.record_function(name)``
-(next to free while no profiler is on), and ``profiler_trace(trace_dir)``
-wraps a run in ``torch.profiler.profile`` and writes one Chrome trace,
+Tracing: every stage and span runs inside
+``torch.profiler.record_function(name)`` (next to free while no profiler
+is on), and ``profiler_trace(trace_dir)`` wraps a run in
+``torch.profiler.profile`` and writes one Chrome trace,
 ``trace_dir/TRACE_FILE``. ``read_trace`` reads such a file back: the
 stage spans, the device's kernels and copies, and the device's busy share
 of a stage.
@@ -26,6 +28,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from . import device as _device
+
 log = logging.getLogger("genome_assembler_tpu_torch")
 
 HBM_PEAK_BYTES_S = 3.35e12  # NVIDIA H100 SXM, 80 GB HBM3 (data sheet)
@@ -38,17 +42,41 @@ class Metrics:
 
     stages: dict[str, float] = field(default_factory=dict)
     counters: dict[str, float] = field(default_factory=dict)
+    spans: dict[str, list] = field(default_factory=dict)  # [seconds, calls]
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        """Time a pipeline stage; nested stages accumulate independently.
-        The stage is a ``record_function`` span of a profiler trace."""
+    def stage(self, name: str, devices=(), after=None):
+        """Time a pipeline stage (a ``record_function`` span); nested
+        stages accumulate independently. It closes, as the span
+        ``<name>.sync``, with a synchronise of ``devices`` (one or several;
+        every stream of each), so queued work is charged to the stage that
+        queued it, then ``after`` (a mesh's barrier)."""
+        if isinstance(devices, torch.device):
+            devices = [devices]
         t0 = time.perf_counter()
         with torch.profiler.record_function(name):
             yield
+            if devices or after is not None:
+                with self.span(f"{name}.sync"):
+                    for dev in dict.fromkeys(devices):
+                        _device.synchronize(dev)
+                    if after is not None:
+                        after()
         dt = time.perf_counter() - t0
         self.stages[name] = self.stages.get(name, 0.0) + dt
         log.debug("stage %s: %.3fs", name, dt)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """Host seconds and calls (``spans``, not ``stages``) of host work
+        inside a stage, a ``record_function`` span; it never waits on the
+        device."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(name):
+            yield
+        total = self.spans.setdefault(name, [0.0, 0])
+        total[0] += time.perf_counter() - t0
+        total[1] += 1
 
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0.0) + value
@@ -80,14 +108,9 @@ class Metrics:
             "stages_s": {k: round(v, 4) for k, v in self.stages.items()},
             "counters": self.counters,
             "derived": {k: round(v, 3) for k, v in self.derive().items()},
+            "spans_s": {k: [round(s, 4), n]
+                        for k, (s, n) in self.spans.items()},
         }
-
-    def dump(self, path: str | None = None) -> str:
-        text = json.dumps(self.report(), indent=2)
-        if path:
-            with open(path, "w") as fh:
-                fh.write(text + "\n")
-        return text
 
 
 @contextlib.contextmanager

@@ -37,6 +37,8 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from .metrics import Metrics
+
 # fill(i, planes) writes batch i into the host planes (one [rows, width]
 # uint8 array a plane) and returns how many rows it wrote
 Fill = Callable[[int, list[np.ndarray]], int]
@@ -49,7 +51,10 @@ class UploadRing:
     block t of every plane goes to ``targets[t]``'s device. widths: bytes
     a row of each plane. depth: batches queued ahead of the one in use.
     pipelined: pinned slots and copy streams (default: when every target
-    is a CUDA device); False is the plain synchronous route.
+    is a CUDA device); False is the plain synchronous route. metrics: where
+    the host's spans add up, ``count.fill`` around each ``fill`` and
+    ``count.wait`` around each wait for a copy (a throwaway ``Metrics`` if
+    None; the spans are in a profiler trace either way).
 
     ``stream(first, n, fill)`` yields ``(i, blocks)`` for i in
     ``range(first, n)``: ``blocks[t][p]`` is plane p's rows of block t on
@@ -61,10 +66,12 @@ class UploadRing:
     """
 
     def __init__(self, targets, widths, *, depth: int = 2,
-                 pipelined: bool | None = None):
+                 pipelined: bool | None = None,
+                 metrics: Metrics | None = None):
         self.targets = [(torch.device(dev), int(rows)) for dev, rows in targets]
         self.widths = list(widths)
         self.depth = depth
+        self.metrics = metrics if metrics is not None else Metrics()
         on_card = all(dev.type == "cuda" for dev, _ in self.targets)
         self.pipelined = on_card if pipelined is None else pipelined
         if self.pipelined and not on_card:
@@ -103,8 +110,9 @@ class UploadRing:
 
     def __exit__(self, *exc):
         if self.pipelined:
-            for stream in self._copy_stream.values():
-                stream.synchronize()
+            with self.metrics.span("count.wait"):
+                for stream in self._copy_stream.values():
+                    stream.synchronize()
         return False
 
     def _blocks(self, n: int):
@@ -120,7 +128,8 @@ class UploadRing:
 
     def _upload_plain(self, i: int, fill: Fill):
         planes = [np.empty((self.rows, w), dtype=np.uint8) for w in self.widths]
-        n = fill(i, planes)
+        with self.metrics.span("count.fill"):
+            n = fill(i, planes)
         return [
             [torch.from_numpy(p[lo : lo + take]).to(self.targets[t][0])
              for p in planes]
@@ -130,9 +139,11 @@ class UploadRing:
     def _submit(self, i: int, fill: Fill, slot: dict) -> None:
         if slot["used"]:
             # the slot's last copy has left the pinned memory
-            for ev in slot["copied"].values():
-                ev.synchronize()
-        n = slot["n"] = fill(i, [h.numpy() for h in slot["host"]])
+            with self.metrics.span("count.wait"):
+                for ev in slot["copied"].values():
+                    ev.synchronize()
+        with self.metrics.span("count.fill"):
+            n = slot["n"] = fill(i, [h.numpy() for h in slot["host"]])
         for dev in self._devices:
             stream = self._copy_stream[dev]
             if slot["used"]:

@@ -45,7 +45,8 @@ def test_runner_passes_and_matches_the_reference(cid, monkeypatch):
     for detail in report.values():
         for name in ("metrics", "sharded_run_metrics"):
             if name in detail:
-                assert set(detail[name]) == {"stages_s", "counters", "derived"}
+                assert set(detail[name]) == {"stages_s", "counters",
+                                             "derived", "spans_s"}
     if cid in (4, 6):
         assert got.detail["counts_match_host"] is True
     if cid == 4:

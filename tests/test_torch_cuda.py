@@ -382,6 +382,33 @@ def test_trace_holds_cuda_kernels_and_stages(cuda_device, tmp_path):
     assert 0 <= derived["hbm_roofline_frac"] < 1  # rounded to 3 places
 
 
+def test_host_spans_share_the_device_clock(cuda_device, tmp_path):
+    """One streamed assembly (12 batches through the ring) traced: the
+    device work launched inside ``count`` ends by the end of its closing
+    synchronise (``count.sync``, 50 us of slack), and the ring waits for
+    each reused slot and once as it closes (``count.wait``)."""
+    from genome_assembler_tpu_torch.models.pipeline import UPLOAD_PREFETCH
+    from genome_assembler_tpu_torch.utils import metrics
+
+    reads = _noisy_reads()  # 8000 reads
+    batches = 12
+    cfg = ref.AssemblyConfig(k=31, min_count=3, read_len=100, batch_reads=700)
+    assemble_torch(reads, cfg, device=cuda_device, table_capacity=1 << 18)
+    m = metrics.Metrics()
+    with metrics.profiler_trace(str(tmp_path)):
+        assemble_torch(reads, cfg, device=cuda_device, metrics=m,
+                       table_capacity=1 << 18)
+    trace = metrics.read_trace(str(tmp_path))
+    [(lo, hi)], [(s0, s1)] = trace.stages["count"], trace.stages["count.sync"]
+    assert lo <= s0 and s1 <= hi
+    ends = [end for start, end, _ in trace.device if lo <= start < hi]
+    assert ends and max(ends) <= s1 + 50
+    assert len(trace.stages["count.fill"]) == batches
+    assert len(trace.stages["count.step"]) == batches
+    waits = batches - (UPLOAD_PREFETCH + 1) + 1
+    assert len(trace.stages["count.wait"]) == m.spans["count.wait"][1] == waits
+
+
 @pytest.mark.parametrize("world", [1, 2, 4])
 def test_nccl_ranks_equal_single_process_mesh(tmp_path, world):
     """The multi-process mesh over NCCL, a card a rank (4 shards over

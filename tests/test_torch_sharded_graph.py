@@ -27,12 +27,12 @@ from genome_assembler_tpu.parallel.mesh import build_mesh as jax_mesh
 from genome_assembler_tpu.parallel.mesh import mesh_axes
 from genome_assembler_tpu.utils.config import AssemblyConfig
 from genome_assembler_tpu.utils.dna import decode_seq, encode_seq
-from genome_assembler_tpu.utils.metrics import Metrics
 from genome_assembler_tpu.utils.simulate import simulate_genome, simulate_reads
 from genome_assembler_tpu_torch import cli
 from genome_assembler_tpu_torch.ops import count_torch
 from genome_assembler_tpu_torch.parallel import mesh as mesh_mod
 from genome_assembler_tpu_torch.utils.keys import limbs_to_words
+from genome_assembler_tpu_torch.utils.metrics import Metrics
 
 torch.set_num_threads(1)
 
