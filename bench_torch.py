@@ -29,7 +29,7 @@ windows on the same machine.
 ``single_shot_with_transfer_s``, ``stream_vs_single_shot``) and adds the
 card (``nvidia-smi``'s name and power limit), ``build_s`` (the kernel's
 build, before the first timed region), the extraction kernel's launches
-by leg, and the checks the run makes on the way (``extract_equal``,
+by leg and the pack kernel's (``pack_launches``), and the checks the run makes on the way (``extract_equal``,
 ``stream_table_equal``).
 
 What ``bench.py`` built around its TPU, and what stands here instead:
@@ -178,12 +178,14 @@ def run(args: argparse.Namespace) -> dict:
     on_card = dev.type == "cuda"
     card = card_line(dev)
     k = args.k
-    kmer.extract_canonical_flat.launches = 0
-    launches = {}
+    kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
+    launches, pack_launches = {}, {}
 
     def tally(leg):
         launches[leg] = (kmer.extract_canonical_flat.launches
                          - sum(launches.values()))
+        pack_launches[leg] = (kmer.pack_on_device.launches
+                              - sum(pack_launches.values()))
 
     build_s = None
     if on_card:
@@ -346,6 +348,7 @@ def run(args: argparse.Namespace) -> dict:
             "extract_bound_s": bound_ms / 1e3,
             "extract_bound_by": bound_by,
             "extract_launches": launches,
+            "pack_launches": pack_launches,
             "assemble_s": asm_s,
             "assemble_reads_per_s": n_reads / asm_s,
             "assemble_stages_s": dict(mm.stages),

@@ -8,7 +8,8 @@ result line:
 
   1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
      power limit;
-  2. build the extraction kernel from ``genome_assembler_tpu_torch/csrc``;
+  2. build ``genome_assembler_tpu_torch/csrc/kmer_extract.cu``: the
+     extraction and the pack kernel, one library;
   3. the kernel against its plain torch version on the card, bit-equal:
      k in {21, 25, 31, 41, 63} with ambiguous bases and n_valid < B, the
      edge shapes of its block layout (one window a read, read lengths off
@@ -121,6 +122,22 @@ result line:
      one contig of 40,000,000 bases equal to the genome,
      ``exact_kmer_content``, and two launches a batch (cold and warm). Both
      JSON lines and the phase's seconds are printed.
+ 18. (run right after phase 3, before any phase that starts
+     torch.profiler, after which a call's CUDA-event time reads slower)
+     the pack kernel (``pack_reads_kernel`` in ``csrc/kmer_extract.cu``)
+     against its plain version, byte for byte, and its flag: at L in
+     {99, 100, 101, 250} with no N, Ns, a ragged batch of 333 reads and
+     an N in the last base of the last row only, and at the main path's
+     262,144, 250,000 and 70,826 reads of 100 bases with no N, Ns and an N
+     in the last base only; the extraction kernel with the pack's flag
+     equal to it without invalid bits (flag 0) and to the plain version
+     (flag set), and the masked windows it counts on the card equal to
+     the host's, at k in {21, 31, 41} and at the main batch. Both timed at
+     the main batch as graphs of launches on inputs that do not fit L2
+     (the pack clean and with Ns, beside its bound, a wrapper call and the
+     plain pack; extraction without bits, with the flag at 0 and set),
+     each time held to its bound: one under it fails the run. Every
+     main path checks its pack launches (one a batch on one device).
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
@@ -128,7 +145,8 @@ phase's ring run, the acceptance runners, the multi-process ranks, the
 bucketed counts of phase 15, the strided counts of phase 16, and
 phase 17's bench (its count, streamed and assembly legs; not the launches
 that check and time the kernel) and 40 Mb run, and given for each in
-``launches_by_path``); the last line is
+``launches_by_path``), then the pack kernel's (its launches on the same
+paths, its times from phase 18); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
 """
@@ -231,6 +249,52 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# the pack kernel's launches by path, beside the extraction kernel's
+PACK_LAUNCHES: dict[str, int] = {}
+
+
+def reset_launches(kmer) -> None:
+    """Zero the extraction and the pack kernel's launch counters."""
+    kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
+
+
+def tally_packs(kmer, path: str) -> int:
+    """Add the pack kernel's launches since the last reset to ``path``."""
+    PACK_LAUNCHES[path] = (PACK_LAUNCHES.get(path, 0)
+                           + kmer.pack_on_device.launches)
+    return kmer.pack_on_device.launches
+
+
+def graph_ms(torch, calls, reps: int) -> float:
+    """Device ms of one call: ``reps`` calls cycling through ``calls``
+    (each on inputs of its own, more bytes together than the card's 50 MB
+    L2, so no call reads what the one before left there), captured in one
+    CUDA graph and replayed between two CUDA events, so that the host's
+    time to launch is not counted; every output lives until the replay
+    ends, so no call writes over lines an earlier one left in L2. The
+    median of five replays."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [calls[i % len(calls)]() for i in range(reps)]
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(5):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del outs, graph
+    torch.cuda.empty_cache()
+    return sorted(times)[2]
+
+
 def check_trap_shapes(torch, ref, kmer, dev) -> int:
     """The kernel, bit-equal to its plain version at TRAP_SHAPES with and
     without invalid bits, and REFUSED_SHAPE raising; returns the count."""
@@ -321,6 +385,159 @@ def phase_kernel(torch, ref, kmer, dev):
                    "bound_by": bound_by}
 
 
+PACK_LENGTHS = (99, 100, 101, 250)
+# the main path's batches: CFG-2's, and the upload phase's batches of
+# 250,000 reads with their 70,826-read tail
+PACK_MAIN_ROWS = (MAIN_BATCH[0], 250_000, 70_826)
+
+
+def check_pack(torch, kmer, reads, dev, what: str) -> None:
+    """The pack kernel on ``reads`` against its plain version (on the CPU),
+    byte for byte, and its flag against the reads."""
+    codes = torch.from_numpy(reads).to(dev)
+    got = kmer.pack_on_device(codes)
+    want = kmer.pack_on_device(codes.cpu())
+    torch.cuda.synchronize()
+    for name in ("packed", "inv"):
+        check(torch.equal(getattr(got, name).cpu(), getattr(want, name)),
+              f"pack kernel {name} != plain version at {what}")
+    check(bool(got.flag) == bool((reads > 3).any()),
+          f"pack kernel flag {int(got.flag)} at {what}")
+
+
+def phase_pack(torch, ref, kmer, dev):
+    """The pack kernel (csrc/kmer_extract.cu's pack_reads_kernel) against
+    its plain version, byte for byte, with its flag, at edge shapes and at
+    the main path's; the extraction kernel reading the flag against its
+    plain version at the main batch; both timed there, each time held to
+    its bound."""
+    import numpy as np
+
+    from genome_assembler_tpu_torch.ops.kmer_ref import window_valid_np
+
+    rng = np.random.default_rng(15)
+    cases = 0
+    for length in PACK_LENGTHS:
+        for b, n_rate, last in ((1024, 0.0, False), (1024, 0.01, False),
+                                (333, 0.01, False), (1024, 0.0, True)):
+            reads = random_reads(rng, b, length, n_rate)
+            if last:
+                reads[-1, -1] = 4
+            check_pack(torch, kmer, reads, dev, f"B={b}, L={length}, N "
+                       f"share {n_rate}, N last {last}")
+            cases += 1
+    for b in PACK_MAIN_ROWS:
+        for n_rate, last in ((0.0, False), (0.001, False), (0.0, True)):
+            reads = random_reads(rng, b, 100, n_rate)
+            if last:
+                reads[-1, -1] = 4
+            check_pack(torch, kmer, reads, dev, f"B={b}, L=100, N share "
+                       f"{n_rate}, N last {last}")
+            cases += 1
+    for k in (21, 31, 41):
+        for n_rate in (0.0, 0.01):
+            reads = random_reads(rng, 1000, 100, n_rate)
+            p = kmer.pack_on_device(torch.from_numpy(reads).to(dev))
+            masked = torch.zeros((), dtype=torch.int64, device=dev)
+            got = kmer.extract_canonical_flat(p.packed, 100, k, 777, p.inv,
+                                              flag=p.flag, masked=masked)
+            want = kmer.extract_canonical_flat(
+                p.packed, 100, k, 777, p.inv if n_rate else None)
+            plain = kmer.extract_canonical_flat_ref(p.packed, 100, k, 777,
+                                                    p.inv)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want) and torch.equal(got, plain),
+                  f"extraction with the flag != without it at k={k}, "
+                  f"N share {n_rate}")
+            n = int((~window_valid_np(reads[:777], k)).sum())
+            check(int(masked) == n, f"the card counted {int(masked)} masked "
+                  f"windows at k={k}, the host {n}")
+
+    # the main batch: clean and with Ns, each in four copies for the timing
+    b, length, k = MAIN_BATCH
+    clean = [torch.from_numpy(random_reads(rng, b, length, 0.0)).to(dev)
+             for _ in range(4)]
+    noisy_host = random_reads(rng, b, length, 0.001)
+    noisy = [torch.from_numpy(noisy_host).to(dev)] + [
+        torch.from_numpy(random_reads(rng, b, length, 0.001)).to(dev)
+        for _ in range(3)]
+    p = [kmer.pack_on_device(c) for c in clean]
+    pn = [kmer.pack_on_device(c) for c in noisy]
+    masked = torch.zeros((), dtype=torch.int64, device=dev)
+    flag_0 = kmer.extract_canonical_flat(p[0].packed, length, k,
+                                         inv_bits=p[0].inv, flag=p[0].flag)
+    no_bits = kmer.extract_canonical_flat(p[0].packed, length, k)
+    flag_0_equal = torch.equal(flag_0, no_bits)
+    del flag_0, no_bits
+    flag_set = kmer.extract_canonical_flat(pn[0].packed, length, k,
+                                           inv_bits=pn[0].inv,
+                                           flag=pn[0].flag, masked=masked)
+    plain = kmer.extract_canonical_flat_ref(pn[0].packed, length, k,
+                                            inv_bits=pn[0].inv)
+    flag_set_equal = torch.equal(flag_set, plain)
+    del flag_set, plain
+    n = int((~window_valid_np(noisy_host, k)).sum())
+    check(flag_0_equal, f"extraction at {b}x{length} with the flag at 0 != "
+          f"without bits")
+    check(flag_set_equal, f"extraction at {b}x{length} with the flag set != "
+          f"the plain version")
+    check(int(masked) == n > 0, f"the card counted {int(masked)} masked "
+          f"windows at {b}x{length}, the host {n}")
+    log(f"pack kernel: bytes and flag equal to the plain version in {cases} "
+        f"cases (L in {PACK_LENGTHS}: no N, Ns, a ragged batch, an N in the "
+        f"last base only; {PACK_MAIN_ROWS} reads of 100 bases: no N, Ns, an "
+        f"N in the last base only); extraction with the flag equal to it "
+        f"without bits (flag 0) and to the plain version (flag set) at k in "
+        f"(21, 31, 41) and at {b}x{length}, masked windows counted on the "
+        f"card equal to the host's ({n} at {b}x{length})")
+
+    # the wrapper's calls are host bound (CUDA events give about 40 us a
+    # call): the kernels' own times come from graphs of launches
+    call_ms = time_cuda(torch, lambda: kmer.pack_on_device(clean[0]), 50)
+    plain_ms = time_cuda(torch, lambda: (kmer.pack_codes_device(clean[0]),
+                                         kmer.pack_invalid_device(clean[0]),
+                                         (clean[0] > 3).any()), 20)
+    ms = graph_ms(torch, [lambda c=c: kmer.pack_on_device(c)
+                          for c in clean], 64)
+    ms_n = graph_ms(torch, [lambda c=c: kmer.pack_on_device(c)
+                            for c in noisy], 64)
+    nbytes = b * (length + (length + 3) // 4 + (length + 7) // 8)
+    bound_ms = nbytes / kmer.HBM_PEAK_BYTES_S * 1e3
+    extract = {
+        "no_bits": [lambda q=q: kmer.extract_canonical_flat(
+            q.packed, length, k) for q in p],
+        "flag_0": [lambda q=q: kmer.extract_canonical_flat(
+            q.packed, length, k, inv_bits=q.inv, flag=q.flag) for q in p],
+        "flag_set": [lambda q=q: kmer.extract_canonical_flat(
+            q.packed, length, k, inv_bits=q.inv, flag=q.flag, masked=masked)
+            for q in pn],
+    }
+    extract_ms = {name: graph_ms(torch, fns, 16)
+                  for name, fns in extract.items()}
+    extract_bound = {name: kmer.kernel_bound_ms(b, length, k,
+                                                name == "flag_set")[0]
+                     for name in extract}
+    log(f"pack kernel main batch {b}x{length}: device {ms * 1e3:.2f} us "
+        f"clean, {ms_n * 1e3:.2f} us with Ns (a wrapper call "
+        f"{call_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.2f} us "
+        f"({nbytes} bytes at {kmer.HBM_PEAK_BYTES_S / 1e12} TB/s; "
+        f"{ms / bound_ms:.2f}x), plain torch {plain_ms:.4f} ms; "
+        f"extraction, device ms: " + json.dumps(
+            {n_: round(v, 4) for n_, v in extract_ms.items()})
+        + ", bounds: " + json.dumps(
+            {n_: round(v, 4) for n_, v in extract_bound.items()}))
+    for name, got_ms, want_ms in (
+            ("pack, clean", ms, bound_ms), ("pack, Ns", ms_n, bound_ms),
+            *((f"extraction, {n_}", extract_ms[n_], extract_bound[n_])
+              for n_ in extract)):
+        check(got_ms >= want_ms, f"{name}: {got_ms:.4f} ms on the device, "
+              f"under its {want_ms:.4f} ms bound: the timing is wrong")
+    return {"ms": ms, "ms_with_ns": ms_n, "call_ms": call_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "extract_ms": extract_ms, "extract_bound_ms": extract_bound}
+
+
 def cfg1_reads(ref):
     genome = ref.simulate_genome(48_502, seed=1020)
     rs = ref.simulate_reads(genome, coverage=100, read_len=100, seed=1021,
@@ -374,13 +591,19 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
     check(ref.contigs_equal(cold, want), "CFG-2 cold run != genome")
 
     m = pipeline.Metrics()
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     contigs = pipeline.assemble_torch(rs.codes, cfg, device=dev,
                                       table_capacity=capacity, metrics=m)
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
+    check(tally_packs(kmer, "cfg2") == launches,
+          f"CFG-2 main path packed {kmer.pack_on_device.launches} batches "
+          f"on the card for {launches} extractions")
+    check(m.counters["ambiguous_batches"] == 0
+          and "masked_windows" not in m.counters,
+          f"CFG-2 has no N, yet the card counted {m.counters}")
     peak = torch.cuda.max_memory_allocated(dev)
     check(len(contigs) == 1, f"CFG-2: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-2 contig != genome")
@@ -483,13 +706,15 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     del packed, got, ref_keys
 
     m = dist.Metrics()
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
     reset_peaks(torch, mesh)
     t0 = time.perf_counter()
     contigs = dist.assemble_distributed(rs.codes, cfg, mesh, metrics=m,
                                         table_capacity=capacity)
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
+    check(tally_packs(kmer, "cfg4_gathered") > 0,
+          "CFG-4 main path never launched the pack kernel")
     peak = peaks_gib(torch, mesh)
     check(len(contigs) == 1, f"CFG-4: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-4 contig != genome")
@@ -575,7 +800,7 @@ def phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, reads, cfg,
     mesh = mesh_mod.build_mesh(4)
     ck = os.path.join(keep, "cfg4_shards.npz")
     m = dist.Metrics()
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
     reset_peaks(torch, mesh)
     t0 = time.perf_counter()
     contigs = dist.assemble_distributed_sharded(
@@ -584,6 +809,8 @@ def phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, reads, cfg,
     )
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
+    check(tally_packs(kmer, "cfg4_sharded_graph") > 0,
+          "CFG-4 sharded graph never launched the pack kernel")
     peak = peaks_gib(torch, mesh)
     check(len(contigs) == 1,
           f"CFG-4 sharded graph: {len(contigs)} contigs, expected 1")
@@ -679,14 +906,15 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
         return pipeline.count_reads_device(rows, cfg_, device=dev,
                                            table_capacity=capacity, **kw)
 
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
     t0 = time.perf_counter()
     ring = count(reads, cfg)
     torch.cuda.synchronize(dev)
     t_ring = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    check(launches == batches, f"the ring run launched the kernel "
-          f"{launches} times for {batches} batches")
+    check(launches == batches == tally_packs(kmer, "cfg2_upload_ring"),
+          f"the ring run launched the kernel {launches} times and the pack "
+          f"{kmer.pack_on_device.launches} times for {batches} batches")
     t0 = time.perf_counter()
     plain = count(reads, cfg, _plain_upload=True)
     torch.cuda.synchronize(dev)
@@ -707,10 +935,18 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
           rng.integers(0, 100, 200_000)] = 4
     cfg_n = ref.AssemblyConfig(k=31, read_len=100, batch_reads=250_000)
     check(noisy.shape[0] % 250_000 != 0, "the last batch is not short")
-    a = count(noisy, cfg_n)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    a = count(noisy, cfg_n, ambiguous_counts=counts)
     b = count(noisy, cfg_n, _plain_upload=True)
     check(tables_equal(torch, a, b) and torch.equal(a.limbs, b.limbs),
           "reads with Ns: table through the upload ring != plain uploads")
+    from genome_assembler_tpu_torch.ops.kmer_ref import window_valid_np
+
+    want = [int((~window_valid_np(noisy, 31)).sum()),
+            -(-noisy.shape[0] // 250_000)]
+    check(counts.tolist() == want, f"reads with Ns: the card counted "
+          f"{counts.tolist()} masked windows and batches with an N, the "
+          f"host {want}")
     log(f"upload ring, CFG-2's reads with 200,000 Ns in "
         f"{-(-noisy.shape[0] // 250_000)} batches of 250,000 (last "
         f"{noisy.shape[0] % 250_000}): table bit-equal to the plain "
@@ -737,11 +973,11 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
         fills.append((time.perf_counter() - t0) * 1e3)
     copy_ms = time_cuda(torch, lambda: buf.copy_(slot, non_blocking=True), 10)
     table = count(reads[: 2 * b_], cfg)
-    pack_ms = time_cuda(torch, lambda: pipeline.pack_on_device(buf, False), 10)
+    pack_ms = time_cuda(torch, lambda: pipeline.pack_on_device(buf), 10)
 
     def device_step():
-        packed, inv = pipeline.pack_on_device(buf, False)
-        pipeline._stream_step(table, packed, length, 31, inv)
+        packed, ext = pipeline.pack_batch(buf)
+        pipeline._stream_step(table, packed, length, 31, **ext)
 
     step_ms = time_cuda(torch, device_step, 5)
     log(f"one CFG-2 batch ({b_} x {length}): host fill of the pinned slot "
@@ -753,7 +989,7 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
 
 def phase_accept(torch, acceptance, kmer):
     """The acceptance runners 0, 1, 2 and 5 at full size on the card."""
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
 
     def emit(r):
         log(f"accept: {r.to_json()}")
@@ -763,6 +999,8 @@ def phase_accept(torch, acceptance, kmer):
     failed = [r.config for r in results if not r.passed]
     check(not failed, f"acceptance configs {failed} failed")
     log(f"accept 0, 1, 2, 5: all passed in {time.perf_counter() - t0:.1f} s")
+    check(tally_packs(kmer, "accept_0_1_2_5") > 0,
+          "the acceptance runners never launched the pack kernel")
     return kmer.extract_canonical_flat.launches
 
 
@@ -882,9 +1120,12 @@ def phase_multiprocess(torch, ref, launch, reads, capacity, contigs, ck8,
                   f"{name}: rank {r} reports hosts {rep['hosts']}")
             check(rep["device"] == f"cuda:{r}" and rep["rank"] == r,
                   f"{name}: rank {r} ran on {rep['device']}")
-            check(rep["kernel_launches"] > 0,
-                  f"{name}: rank {r} never launched the kernel")
+            check(rep["kernel_launches"] > 0 and rep["pack_launches"] > 0,
+                  f"{name}: rank {r} never launched the kernels")
         launches += sum(rep["kernel_launches"] for rep in reports)
+        PACK_LAUNCHES["cfg4_multiprocess"] = PACK_LAUNCHES.get(
+            "cfg4_multiprocess", 0) + sum(rep["pack_launches"]
+                                          for rep in reports)
         r0 = reports[0]
         runs[name] = {
             "spawn_s": round(res.seconds, 3),
@@ -1184,17 +1425,19 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     tables = {}
     for layout in ("off", "on", "off", "on"):
         if layout == "on" and not secs["on"]:
-            kmer.extract_canonical_flat.launches = 0
+            reset_launches(kmer)
         tables[layout], s_ = count(layout)
         if layout == "on" and not secs["on"]:
             launches["cfg4_bucketed_one_device"] = (
                 kmer.extract_canonical_flat.launches)
+            tally_packs(kmer, "cfg4_bucketed_one_device")
         secs[layout].append(s_)
     check(tables_bit_equal(torch, tables["on"], tables["off"]),
           "CFG-4 on one device: bucketed table != flat table")
     check(launches["cfg4_bucketed_one_device"] == -(-reads.shape[0]
-                                                    // cfg.batch_reads),
-          "the bucketed count did not launch the kernel once a batch")
+                                                    // cfg.batch_reads)
+          == PACK_LAUNCHES["cfg4_bucketed_one_device"],
+          "the bucketed count did not launch the kernels once a batch")
     log("bucketed, CFG-4 on one device: " + json.dumps({
         "merge_rows": capacity + merge_windows,
         "bound": pipeline.BUCKETED_MIN_MERGE_ROWS, "auto_picks": "on",
@@ -1232,7 +1475,7 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     shard_tables, shard_secs = {}, {}
     for layout in ("off", "on"):
         if layout == "on":
-            kmer.extract_canonical_flat.launches = 0
+            reset_launches(kmer)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         shard_tables[layout] = dist._run_distributed_step(
@@ -1240,8 +1483,9 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
         torch.cuda.synchronize()
         shard_secs[layout] = round(time.perf_counter() - t0, 4)
     launches["cfg4_bucketed_4_shards"] = kmer.extract_canonical_flat.launches
-    check(launches["cfg4_bucketed_4_shards"] > 0,
-          "the bucketed 4-shard count never launched the kernel")
+    check(launches["cfg4_bucketed_4_shards"] > 0
+          and tally_packs(kmer, "cfg4_bucketed_4_shards") > 0,
+          "the bucketed 4-shard count never launched the kernels")
     check(all(tables_bit_equal(torch, a, b) for a, b in
               zip(shard_tables["on"], shard_tables["off"])),
           "CFG-4 on 4 shards: bucketed shard tables != flat ones")
@@ -1262,7 +1506,7 @@ def timed_count(torch, fn, kmer, devices):
     for d_ in devices:
         torch.cuda.synchronize(d_)
         torch.cuda.reset_peak_memory_stats(d_)
-    kmer.extract_canonical_flat.launches = 0
+    reset_launches(kmer)
     t0 = time.perf_counter()
     out = fn()
     for d_ in devices:
@@ -1295,14 +1539,17 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
             pipeline.count_reads_device(
                 reads, cfg, device=dev, table_capacity=capacity,
                 bucketed=layout, merge_stride=stride)), kmer, [dev])
-        check(n == n_batches, f"stride {stride} {layout}: {n} "
-              f"launches for {n_batches} batches")
+        check(n == n_batches == kmer.pack_on_device.launches,
+              f"stride {stride} {layout}: {n} launches and "
+              f"{kmer.pack_on_device.launches} packs for {n_batches} "
+              f"batches")
         if base is None:
             base = t
         check(tables_bit_equal(torch, t, base),
               f"CFG-4 stride {stride}, {layout}: table != stride 1")
         if stride > 1:
             launches["cfg4_strided_one_device"] += n
+            tally_packs(kmer, "cfg4_strided_one_device")
         r = runs.setdefault(f"{stride}/{layout}", {
             "stride": stride, "layout": layout,
             "auto_takes": "buckets" if pipeline.use_bucketed(
@@ -1331,8 +1578,10 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
                     bucketed=layout, merge_stride=stride), kmer,
                 mesh.devices)
             launches["cfg4_strided_4_shards"] += n
-            check(n == 4 * plan.num_batches,
-                  f"4 shards stride {stride}: {n} launches")
+            check(n == 4 * plan.num_batches
+                  and tally_packs(kmer, "cfg4_strided_4_shards") > 0,
+                  f"4 shards stride {stride}: {n} launches, "
+                  f"{kmer.pack_on_device.launches} packs")
             check(all(tables_bit_equal(torch, a, b_)
                       for a, b_ in zip(tables, base)),
                   f"CFG-4 on 4 shards, stride {stride} {layout}: shard "
@@ -1440,9 +1689,13 @@ def phase_entry_points() -> dict:
     check(large["contigs"] == 1 and large["n50"] == 40_000_000,
           f"40 Mb run: {large['contigs']} contigs, n50 {large['n50']}")
     batches = -(-large["reads"] // 262_144)
-    check(large["extract_launches"] == 2 * batches,
-          f"40 Mb run: {large['extract_launches']} launches for two runs of "
-          f"{batches} batches")
+    check(large["extract_launches"] == 2 * batches == large["pack_launches"],
+          f"40 Mb run: {large['extract_launches']} launches and "
+          f"{large['pack_launches']} packs for two runs of {batches} batches")
+    PACK_LAUNCHES["bench_torch"] = sum(d["pack_launches"].values())
+    PACK_LAUNCHES["run_large_40mb"] = large["pack_launches"]
+    check(PACK_LAUNCHES["bench_torch"] > 0,
+          "bench_torch never launched the pack kernel")
     log(f"40 Mb run: cold {large['cold_s']:.6g} s, warm {large['warm_s']:.6g}"
         f" s, peak {large['peak_gib']:.4g} GiB, "
         f"{'bucketed' if large['bucketed'] else 'flat'} at "
@@ -1475,9 +1728,12 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build("kmer_extract")
     _build.kmer_extract_fn()
-    log(f"built {KERNEL_SOURCE} -> {lib} in {time.perf_counter() - t0:.2f} s")
+    _build.pack_reads_fn()
+    log(f"built {KERNEL_SOURCE} (extraction and pack) -> {lib} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     err, times = phase_kernel(torch, ref, kmer, dev)
+    pack_times = phase_pack(torch, ref, kmer, dev)
     phase_oracle(torch, ref, pipeline, dev)
     by_path = {}
     by_path["cfg2"], cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline,
@@ -1529,6 +1785,16 @@ def main() -> int:
         "max_abs_err": err,
         **times,
         # no single PyTorch call computes the canonical k-mers of packed reads
+        "library_ms": None,
+    }, {
+        "name": "pack_reads",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": None,
+        "launches": sum(PACK_LAUNCHES.values()),
+        "launches_by_path": PACK_LAUNCHES,
+        "max_abs_err": 0,
+        **pack_times,
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

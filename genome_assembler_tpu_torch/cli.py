@@ -374,10 +374,11 @@ def cmd_assemble(args) -> int:
         # where the run was placed
         import json
 
-        from .ops.kmer_torch import extract_canonical_flat
+        from .ops.kmer_torch import extract_canonical_flat, pack_on_device
 
         report = dict(metrics.report(), device=str(device), wall_s=dt,
                       kernel_launches=extract_canonical_flat.launches,
+                      pack_launches=pack_on_device.launches,
                       merge_stride=stride)
         if device.type == "cuda":
             import torch

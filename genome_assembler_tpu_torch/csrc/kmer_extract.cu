@@ -1,6 +1,9 @@
-// Canonical k-mer extraction for Hopper (sm_90a): every window built in a
-// fixed number of steps from the packed row's own bits, one contiguous
-// stream of 16-byte stores a block.
+// The port's kernels for Hopper (sm_90a), one library: the canonical k-mer
+// extraction, and below it the pack of raw reads that feeds it.
+//
+// Canonical k-mer extraction: every window built in a fixed number of
+// steps from the packed row's own bits, one contiguous stream of 16-byte
+// stores a block.
 //
 // Replaces the TPU kernel genome_assembler_tpu/ops/kmer_pallas.py::_kernel
 // (and the XLA chain kmer_jax.unpack_codes -> unpack_invalid_mask ->
@@ -16,6 +19,12 @@
 //        (high 64 bits, low 64 bits ^ INT64_MIN)).
 //   Windows of rows >= n_valid, and windows that touch an invalid bit,
 //   get the sentinel limbs (INT64_MAX).
+//   flag (optional): the batch's int32 flag from the pack (below), non-zero
+//   iff the batch holds an invalid base. Each block reads it once: at 0 the
+//   block takes the path without invalid bits and never reads them; set,
+//   it stages and applies them, and adds the windows of its rows < n_valid
+//   that they mask to the int64 counter `masked` (optional), one atomic a
+//   block. Without a flag the invalid bits, where given, are always read.
 //
 // What bounds it on the card: device-memory bytes, almost all of them the
 // key stream it writes (8*n_limbs bytes a window against about L/4 + L/8
@@ -145,32 +154,15 @@ __device__ __forceinline__ longlong2 key_two_limbs(const uint32_t* scodes,
                         (long long)((pick_fwd ? flo : rlo) ^ kSignBit));
 }
 
-template <int NL>
-__global__ void __launch_bounds__(kThreads) extract_canonical_kernel(
-    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ inv,
-    long long* __restrict__ out, int64_t batch, int64_t n_valid, int read_len,
-    int k, Plan plan) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* scodes = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* sinv = scodes + plan.code_words;
-
-  const int wc = read_len - k + 1;
-  const int64_t r0 = (int64_t)blockIdx.x * plan.reads_per_block;
-  const int rows = batch - r0 < plan.reads_per_block
-                       ? (int)(batch - r0)
-                       : plan.reads_per_block;
-  const bool has_inv = inv != nullptr;
-  const int code_bytes = (read_len + 3) >> 2;  // a packed row
-  const int inv_bytes = (read_len + 7) >> 3;
-
-  // bit of the staged streams at which the block's first row starts
-  const int code_bit0 =
-      8 * stage_span(scodes, packed + r0 * code_bytes, rows * code_bytes);
-  const int inv_bit0 =
-      has_inv ? 8 * stage_span(sinv, inv + r0 * inv_bytes, rows * inv_bytes)
-              : 0;
-  __syncthreads();
-
+// Write the keys of a block's rows, [r0*wc*NL, (r0+rows)*wc*NL) of the
+// output, from the staged streams; INV: apply the invalid bits. Returns
+// the thread's windows of rows < n_valid that an invalid bit masked.
+template <int NL, bool INV>
+__device__ __forceinline__ unsigned write_keys(
+    const uint32_t* scodes, const uint32_t* sinv, int code_bit0,
+    int inv_bit0, long long* __restrict__ out, int64_t r0, int rows,
+    int64_t n_valid, int wc, int k, int code_bytes, int inv_bytes) {
+  unsigned masked = 0;
   // The block's keys are one contiguous span of the output, 16-byte
   // aligned because r0 is even: walk it in 16-byte pairs.
   const int n = rows * wc;  // windows of the block
@@ -183,12 +175,13 @@ __global__ void __launch_bounds__(kThreads) extract_canonical_kernel(
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         // the second window of an odd span's last pair is not stored
-        const bool live = i == 0 || j + 1 < n;
+        const bool live = (i == 0 || j + 1 < n) && r0 + r < n_valid;
         const bool bad =
-            !live || r0 + r >= n_valid ||
-            (has_inv &&
-             window_bad(sinv, inv_bit0 + 8 * r * inv_bytes + w, k));
-        v[i] = bad ? kSentinel
+            INV && live &&
+            window_bad(sinv, inv_bit0 + 8 * r * inv_bytes + w, k);
+        masked += bad;
+        v[i] = !live || bad
+                   ? kSentinel
                    : key_one_limb(
                          scodes, code_bit0 + 8 * r * code_bytes + 2 * w, k);
         if (++w == wc) {
@@ -207,20 +200,73 @@ __global__ void __launch_bounds__(kThreads) extract_canonical_kernel(
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
       const int r = j / wc;
       const int w = j - r * wc;
+      const bool live = r0 + r < n_valid;
       const bool bad =
-          r0 + r >= n_valid ||
-          (has_inv && window_bad(sinv, inv_bit0 + 8 * r * inv_bytes + w, k));
-      gdst[j] = bad ? make_longlong2(kSentinel, kSentinel)
+          INV && live &&
+          window_bad(sinv, inv_bit0 + 8 * r * inv_bytes + w, k);
+      masked += bad;
+      gdst[j] = !live || bad
+                    ? make_longlong2(kSentinel, kSentinel)
                     : key_two_limbs(
                           scodes, code_bit0 + 8 * r * code_bytes + 2 * w, k);
     }
   }
+  return masked;
 }
 
 template <int NL>
-cudaError_t launch(const void* packed, const void* inv, void* out,
-                   long long batch, long long n_valid, int read_len, int k,
-                   Plan plan, long long shared_bytes, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) extract_canonical_kernel(
+    const uint8_t* __restrict__ packed, const uint8_t* __restrict__ inv,
+    const int* __restrict__ flag, unsigned long long* __restrict__ masked,
+    long long* __restrict__ out, int64_t batch, int64_t n_valid, int read_len,
+    int k, Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* scodes = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* sinv = scodes + plan.code_words;
+
+  const int wc = read_len - k + 1;
+  const int64_t r0 = (int64_t)blockIdx.x * plan.reads_per_block;
+  const int rows = batch - r0 < plan.reads_per_block
+                       ? (int)(batch - r0)
+                       : plan.reads_per_block;
+  // the same for every thread of the block: one 4-byte read of the flag
+  const bool has_inv = inv != nullptr && (flag == nullptr || __ldg(flag) != 0);
+  const int code_bytes = (read_len + 3) >> 2;  // a packed row
+  const int inv_bytes = (read_len + 7) >> 3;
+
+  // bit of the staged streams at which the block's first row starts
+  const int code_bit0 =
+      8 * stage_span(scodes, packed + r0 * code_bytes, rows * code_bytes);
+  if (!has_inv) {
+    __syncthreads();
+    write_keys<NL, false>(scodes, sinv, code_bit0, 0, out, r0, rows, n_valid,
+                          wc, k, code_bytes, inv_bytes);
+    return;
+  }
+  const int inv_bit0 =
+      8 * stage_span(sinv, inv + r0 * inv_bytes, rows * inv_bytes);
+  __syncthreads();
+  unsigned count = write_keys<NL, true>(scodes, sinv, code_bit0, inv_bit0,
+                                        out, r0, rows, n_valid, wc, k,
+                                        code_bytes, inv_bytes);
+  if (masked == nullptr) return;
+  // the block's total, in the first shared word once the streams are read
+  count = __reduce_add_sync(0xffffffffu, count);
+  __syncthreads();
+  if (threadIdx.x == 0) scodes[0] = 0;
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0 && count) atomicAdd(scodes, count);
+  __syncthreads();
+  if (threadIdx.x == 0 && scodes[0]) {
+    atomicAdd(masked, (unsigned long long)scodes[0]);
+  }
+}
+
+template <int NL>
+cudaError_t launch(const void* packed, const void* inv, const void* flag,
+                   void* masked, void* out, long long batch, long long n_valid,
+                   int read_len, int k, Plan plan, long long shared_bytes,
+                   cudaStream_t stream) {
   auto kernel = extract_canonical_kernel<NL>;
   if (shared_bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -231,7 +277,9 @@ cudaError_t launch(const void* packed, const void* inv, void* out,
   const long long blocks =
       (batch + plan.reads_per_block - 1) / plan.reads_per_block;
   kernel<<<(unsigned)blocks, kThreads, (size_t)shared_bytes, stream>>>(
-      (const uint8_t*)packed, (const uint8_t*)inv, (long long*)out, batch, n_valid, read_len, k, plan);
+      (const uint8_t*)packed, (const uint8_t*)inv, (const int*)flag,
+      (unsigned long long*)masked, (long long*)out, batch, n_valid, read_len,
+      k, plan);
   return cudaGetLastError();
 }
 
@@ -241,11 +289,12 @@ cudaError_t launch(const void* packed, const void* inv, void* out,
 // synchronise, allocates nothing, and returns cudaGetLastError() so that a
 // refused launch is reported at once; a plan or a pointer the kernel cannot
 // take is cudaErrorInvalidValue. Rows must be contiguous (stride = row
-// bytes). inv may be null (no invalid bases).
+// bytes). inv may be null (no invalid bases); so may flag (the invalid
+// bits always read) and masked (no count of masked windows).
 extern "C" int kmer_extract_launch(
     const void* packed, long long packed_stride, const void* inv,
-    long long inv_stride, void* out, long long batch, long long n_valid,
-    int read_len, int k, int n_limbs, int reads_per_block, int code_words,
+    long long inv_stride, const void* flag, void* masked, void* out,
+    long long batch, long long n_valid, int read_len, int k, int n_limbs, int reads_per_block, int code_words,
     int inv_words, long long shared_bytes, void* stream) {
   if (k < 2 || k > 63 || read_len < k || batch < 0) {
     return (int)cudaErrorInvalidValue;
@@ -264,14 +313,157 @@ extern "C" int kmer_extract_launch(
       shared_bytes < 4ll * (code_words + inv_words) ||
       shared_bytes > kMaxShared ||
       (batch + reads_per_block - 1) / reads_per_block > 0x7fffffffll ||
-      reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(masked) % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t err =
-      n_limbs == 1 ? launch<1>(packed, inv, out, batch, n_valid, read_len, k,
-                               plan, shared_bytes, s)
-                   : launch<2>(packed, inv, out, batch, n_valid, read_len, k,
-                               plan, shared_bytes, s);
+      n_limbs == 1 ? launch<1>(packed, inv, flag, masked, out, batch, n_valid,
+                               read_len, k, plan, shared_bytes, s)
+                   : launch<2>(packed, inv, flag, masked, out, batch, n_valid,
+                               read_len, k, plan, shared_bytes, s);
   return (int)err;
+}
+
+// --------------------------------------------------------------------------
+// The pack: one pass over a batch of raw read codes that writes the 2-bit
+// pack, the bit plane of the ambiguous bases, and a flag of the batch that
+// says whether it holds any.
+//
+// Replaces no TPU kernel: the JAX package packs its reads on the host
+// (genome_assembler_tpu/utils/dna.py pack_codes, pack_invalid_mask) after a
+// host scan for ambiguous bases (has_ambiguous). The port uploads raw
+// one-byte codes and packs them on the card; this kernel finds the
+// ambiguous bases in that same pass, so that no host scan of the whole read
+// array comes before the count, and the extraction kernel (above) reads
+// the flag to take the invalid bits or leave them.
+//
+//   in : codes [n, L] uint8, rows contiguous (stride L): 0-3 a base, > 3 an
+//        ambiguous base (N).
+//   out: packed [n, ceil(L/4)] uint8, base j in byte j/4 at bit 2*(j%4), an
+//        N as its low 2 bits (utils/dna.py pack_codes);
+//        inv [n, ceil(L/8)] uint8, bit j%8 of byte j/8 set for an N
+//        (pack_invalid_mask; zeros where the batch has none);
+//        flag, one int32, zeroed on the stream before the launch and
+//        non-zero after it iff any code is > 3; where `batches` is given,
+//        the block that sets the flag first adds 1 to it (the batches that
+//        held an N).
+//
+// What bounds it on the card: device-memory bytes. At 262,144 reads x 100
+// bp: 26,214,400 B in, 6,553,600 + 3,407,872 B out, 36,175,872 B, 10.8 us
+// at 3.35 TB/s; its arithmetic is a few dozen integer operations a group of
+// 8 codes. What the design does about it:
+//
+//   * A group of 8 codes of a row is one byte of the invalid plane and two
+//     of the packed row. Group g of the batch is byte g of the invalid
+//     plane, and its codes are 8 contiguous bytes of the input, so
+//     neighbouring threads on neighbouring groups read and write
+//     neighbouring bytes: loads and stores coalesce whatever L is, and no
+//     row is staged. A thread takes four groups, a block's width apart,
+//     and issues all their loads before any arithmetic, so that enough
+//     bytes are in flight to cover the memory's latency.
+//   * The 8 codes come in as the aligned 32-bit words under them, joined by
+//     funnel shifts; the pack is word arithmetic (the low 2 bits of 4 bytes
+//     gathered by two shifts; the test for > 3 on 4 bytes at once by
+//     __vcmpgtu4, its 4 bits gathered by one multiply).
+//   * The flag costs a vote a block (__syncthreads_or) and an atomic only in
+//     a block that saw an N.
+
+namespace {
+
+constexpr int kPackThreads = 256;
+// groups of 8 codes a thread, kPackThreads apart
+constexpr int kPackGroups = 4;
+
+// The low 2 bits of the 4 bytes of w, byte i at bits 2i, 2i+1.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) {
+  w &= 0x03030303u;
+  w |= w >> 6;  // bytes 0 and 2 now hold two codes each
+  return (w & 0x0fu) | ((w >> 12) & 0xf0u);
+}
+
+// Bit i set iff byte i of w is > 3.
+__device__ __forceinline__ uint32_t bad4(uint32_t w) {
+  const uint32_t hit = __vcmpgtu4(w, 0x03030303u) & 0x01010101u;
+  // the products of the four bits land apart; bits 24-27 are bytes 0-3
+  return (hit * 0x01020408u) >> 24;
+}
+
+__global__ void __launch_bounds__(kPackThreads) pack_reads_kernel(
+    const uint8_t* __restrict__ codes, int64_t rows, int read_len,
+    uint8_t* __restrict__ packed, uint8_t* __restrict__ inv,
+    int* __restrict__ flag, unsigned long long* __restrict__ batches) {
+  const int ib = (read_len + 7) >> 3;  // groups (invalid bytes) a row
+  const int cb = (read_len + 3) >> 2;  // packed bytes a row
+  const uint64_t groups = (uint64_t)rows * ib;
+  const uintptr_t end = reinterpret_cast<uintptr_t>(codes) + rows * read_len;
+  const uint32_t g0 = blockIdx.x * (kPackThreads * kPackGroups) + threadIdx.x;
+  // every load of the thread's groups first, then the arithmetic
+  uint32_t r[kPackGroups], x[kPackGroups][3];
+  int j[kPackGroups], sh[kPackGroups];
+#pragma unroll
+  for (int i = 0; i < kPackGroups; ++i) {
+    const uint32_t g = g0 + i * kPackThreads;
+    r[i] = g / ib;
+    j[i] = (int)(g - r[i] * ib);
+    const uintptr_t at = reinterpret_cast<uintptr_t>(codes) +
+                         (uint64_t)r[i] * read_len + 8 * j[i];
+    sh[i] = 8 * (int)(at & 3);
+    // the aligned words under the group's bytes; a word wholly past the
+    // batch's last byte is not read
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(at & ~uintptr_t(3));
+#pragma unroll
+    for (int w = 0; w < 3; ++w) {
+      x[i][w] = g < groups && reinterpret_cast<uintptr_t>(p + w) < end
+                    ? __ldg(p + w)
+                    : 0u;
+    }
+  }
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < kPackGroups; ++i) {
+    const uint32_t g = g0 + i * kPackThreads;
+    if (g >= groups) break;
+    const int nv = min(8, read_len - 8 * j[i]);  // codes of the row in the group
+    uint64_t v = ((uint64_t)__funnelshift_r(x[i][1], x[i][2], sh[i]) << 32) |
+                 __funnelshift_r(x[i][0], x[i][1], sh[i]);
+    if (nv < 8) v &= (1ull << (8 * nv)) - 1;  // past the row's end: 0
+    const uint32_t lo = (uint32_t)v;
+    const uint32_t hi = (uint32_t)(v >> 32);
+    const uint32_t bits = bad4(lo) | (bad4(hi) << 4);
+    inv[g] = (uint8_t)bits;
+    const uint64_t po = (uint64_t)r[i] * cb + 2 * j[i];
+    packed[po] = (uint8_t)pack4(lo);
+    if (2 * j[i] + 1 < cb) packed[po + 1] = (uint8_t)pack4(hi);
+    any |= bits != 0;
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0) {
+    if (atomicExch(flag, 1) == 0 && batches != nullptr) atomicAdd(batches, 1ull);
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Zeroes `flag` and launches on
+// `stream`, does not synchronise, allocates nothing, and returns
+// cudaGetLastError() so that a refused launch is reported at once; a shape
+// the kernel cannot take is cudaErrorInvalidValue. Rows must be contiguous
+// in all three arrays; `batches` (an int64) may be null.
+extern "C" int pack_reads_launch(const void* codes, long long rows,
+                                 int read_len, void* packed, void* inv,
+                                 void* flag, void* batches, void* stream) {
+  const long long groups = rows * ((read_len + 7LL) / 8);
+  if (rows < 0 || read_len < 1 || flag == nullptr || groups > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), s);
+  if (err != cudaSuccess || groups == 0) return (int)err;
+  const long long blocks =
+      (groups + kPackThreads * kPackGroups - 1) / (kPackThreads * kPackGroups);
+  pack_reads_kernel<<<(unsigned)blocks, kPackThreads, 0, s>>>(
+      (const uint8_t*)codes, rows, read_len, (uint8_t*)packed, (uint8_t*)inv,
+      (int*)flag, (unsigned long long*)batches);
+  return (int)cudaGetLastError();
 }

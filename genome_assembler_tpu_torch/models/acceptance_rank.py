@@ -32,7 +32,7 @@ import time
 import numpy as np
 
 from ..ops import count_torch
-from ..ops.kmer_torch import extract_canonical_flat
+from ..ops.kmer_torch import extract_canonical_flat, pack_on_device
 from ..parallel.mesh import barrier, build_mesh, init_distributed
 from ..parallel.mesh import shutdown_distributed
 from ..parallel.pipeline import (
@@ -84,6 +84,7 @@ def _job_assemble(args, reads, cfg, mesh) -> None:
             "contigs": contigs, "sharded": sharded, "wall_s": wall,
             "metrics": m.report(),
             "kernel_launches": extract_canonical_flat.launches,
+            "pack_launches": pack_on_device.launches,
         }, fh)
 
 

@@ -12,8 +12,10 @@ Counterpart of ``genome_assembler_tpu/models/pipeline.py::assemble_tpu``:
                                            modules (host.*)
 
 Reads cross to the device as raw one-byte codes and are packed there (4
-bases per byte, ambiguous bases as a separate bit plane) for the kernel;
-everything from the pack to the spelling reduction stays on the device.
+bases per byte, ambiguous bases as a separate bit plane) for the kernel,
+in one pass that also finds whether the batch holds an ambiguous base:
+the host never scans the reads for one. Everything from the pack to the
+spelling reduction stays on the device.
 The streaming counter uploads through ``utils.upload.UploadRing``: pinned
 host slots, a copy stream, two batches queued ahead of the one being
 counted, and nothing between two batches that waits for the device.
@@ -39,7 +41,6 @@ from ..host.simplify import simplify_counts
 from ..host.simplify_arrays import simplify_arrays_to_graph
 from ..host.traverse import emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
-from ..utils.dna import has_ambiguous
 from ..utils.metrics import Metrics
 
 from ..host.dbg import spell_device_arrays
@@ -56,11 +57,7 @@ from ..ops.bucketed_torch import (
     route_pack_keys,
 )
 from ..ops.count_torch import CountTable
-from ..ops.kmer_torch import (
-    extract_canonical_flat,
-    pack_codes_device,
-    pack_invalid_device,
-)
+from ..ops.kmer_torch import extract_canonical_flat, pack_on_device
 from ..ops.unitig_torch import compress_unitigs_device
 from ..utils.device import resolve_device
 from ..utils.keys import SENTINEL, limbs_to_words, n_limbs
@@ -95,26 +92,21 @@ def timed_stage(m: Metrics, name: str, devices, after=None):
     return m.stage(name, devices, after)
 
 
-def pack_on_device(codes: torch.Tensor, has_invalid: bool):
-    """Raw [B, L] codes on their device -> (packed codes, invalid bits or
-    None): the kernel's inputs. The one pack route of the port: the bytes
-    equal ``utils.dna.pack_codes`` / ``pack_invalid_mask`` of the same rows."""
-    return (
-        pack_codes_device(codes),
-        pack_invalid_device(codes) if has_invalid else None,
-    )
-
-
 def _count_batch(
     packed: torch.Tensor,
     read_len: int,
     k: int,
     inv_bits: torch.Tensor | None = None,
     out_cap: int | None = None,
+    flag: torch.Tensor | None = None,
+    masked: torch.Tensor | None = None,
 ) -> CountTable:
     """Extract + canonicalize + sort-count one packed read batch; out_cap
-    truncates (flagging overflow) or pads the table to that capacity."""
-    keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits)
+    truncates (flagging overflow) or pads the table to that capacity.
+    ``flag`` and ``masked`` go to ``extract_canonical_flat``: the pack's
+    flag of the batch, and the device counter of masked windows."""
+    keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits,
+                                  flag=flag, masked=masked)
     table = count_torch.count_keys(keys)
     if out_cap is not None:
         table = count_torch.resize_table(table, out_cap)
@@ -127,11 +119,43 @@ def _stream_step(
     read_len: int,
     k: int,
     inv_bits: torch.Tensor | None = None,
+    flag: torch.Tensor | None = None,
+    masked: torch.Tensor | None = None,
 ) -> CountTable:
     """Count one batch into the running table: the raw canonical key
-    stream weighted-merges straight into it (``merge_raw_keys``)."""
-    keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits)
+    stream weighted-merges straight into it (``merge_raw_keys``);
+    ``flag`` and ``masked`` as for ``_count_batch``."""
+    keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits,
+                                  flag=flag, masked=masked)
     return count_torch.merge_raw_keys(table, keys)
+
+
+def pack_batch(codes: torch.Tensor, counts: torch.Tensor | None = None):
+    """A batch's raw [B, L] codes on its device -> (packed codes, the
+    keywords of ``extract_canonical_flat`` for them). The pack finds the
+    batch's ambiguous bases on the device (its flag), and the kernel reads
+    the invalid bits only where the flag is set; nothing waits for the
+    device. ``counts`` (int64 [2] on the device, or None) gains the
+    windows masked for an ambiguous base and, for a batch that holds one,
+    1."""
+    masked, batches = (None, None) if counts is None else counts
+    packed, inv, flag = pack_on_device(codes, batches)
+    return packed, dict(inv_bits=inv, flag=flag, masked=masked)
+
+
+def count_ambiguous(reads: np.ndarray, k: int, batch: int,
+                    device: torch.device, counts: torch.Tensor) -> None:
+    """Add to ``counts`` (int64 [2] on ``device``) what a count of
+    ``reads`` in batches of ``batch`` reads adds: the masked windows and
+    the batches that hold an ambiguous base. Each batch is packed and
+    extracted on the device as the count does, its keys dropped; for the
+    reads a resumed run does not count (the batches before a stream
+    checkpoint's cursor, or all of them after a finished table's)."""
+    reads = np.ascontiguousarray(reads, dtype=np.uint8)
+    for s in range(0, reads.shape[0], batch):
+        codes = torch.from_numpy(reads[s : s + batch]).to(device)
+        packed, ext = pack_batch(codes, counts)
+        extract_canonical_flat(packed, reads.shape[1], k, **ext)
 
 
 def use_bucketed(bucketed: str, merge_rows: int) -> bool:
@@ -404,6 +428,7 @@ def count_reads_device(
     bucketed: str = "auto",
     merge_stride: int | None = None,
     metrics: Metrics | None = None,
+    ambiguous_counts: torch.Tensor | None = None,
     _plain_upload: bool = False,
     _buckets: int | None = None,
     _bucket_accum: int | None = None,
@@ -428,6 +453,13 @@ def count_reads_device(
     merge every BUCKET_ACCUM batches (``BucketedStream``); ``_buckets`` and
     ``_bucket_accum`` set the bucket count and that cadence (for tests).
 
+    ambiguous_counts: an int64 [2] tensor on ``device`` that gains, on the
+    device, the windows masked for an ambiguous base (N) and the batches
+    that held one, over every batch of the reads (on a resumed stream
+    the batches before the checkpoint's cursor too, ``count_ambiguous``);
+    the pack finds them batch by batch (``pack_batch``), and no host pass
+    scans the reads.
+
     merge_stride: deferred merges. With a stride s > 1 and more than one
     batch, each batch's raw keys only wait in a ``PendingKeys`` buffer,
     and the table merges s batches at once (from an empty table; the
@@ -436,11 +468,11 @@ def count_reads_device(
     (accumulation 1). The table is the same at any stride. ``metrics``
     (if given) counts the stride a streamed count took as
     ``merge_stride`` where one was asked for, and adds up the count's
-    host spans: ``count.scan`` (the N scan), ``count.setup`` (entry to
-    the first batch), ``count.fill`` and ``count.step`` (each batch's
-    copy into host memory, and its pack, extraction and merge as
-    enqueued), ``count.wait`` (the ring blocked on a copy) and
-    ``count.finish`` (the tail merge).
+    host spans: ``count.setup`` (entry to the first batch),
+    ``count.fill`` and ``count.step`` (each batch's copy into host
+    memory, and its pack, extraction and merge as enqueued),
+    ``count.wait`` (the ring blocked on a copy) and ``count.finish`` (the
+    tail merge).
 
     stream_checkpoint + stream_checkpoint_every=N: once N streamed batches
     have passed (in the bucketed layout or under a stride: at the next
@@ -457,8 +489,6 @@ def count_reads_device(
     reads = np.ascontiguousarray(reads, dtype=np.uint8)
     b, length = reads.shape
     total_windows = b * (length - cfg.k + 1)
-    with m.span("count.scan"):
-        has_invalid = has_ambiguous(reads)
     batch = cfg.batch_reads
     starts = range(0, b, batch)
     stride = stride_taken(merge_stride, len(starts))
@@ -472,8 +502,8 @@ def count_reads_device(
         with m.span("count.fill"):
             codes = torch.from_numpy(reads).to(device)
         with m.span("count.step"):
-            packed, inv = pack_on_device(codes, has_invalid)
-            return _count_batch(packed, length, cfg.k, inv)
+            packed, ext = pack_batch(codes, ambiguous_counts)
+            return _count_batch(packed, length, cfg.k, **ext)
 
     with m.span("count.setup"):
         capacity = table_capacity or min(total_windows, SINGLE_SHOT_WINDOWS)
@@ -506,6 +536,9 @@ def count_reads_device(
                     "capacity/stride/read set/layout"
                 )
             start_idx = next_start // batch
+            if ambiguous_counts is not None:
+                count_ambiguous(reads[:next_start], cfg.k, batch, device,
+                                ambiguous_counts)
         stream = None
         if plan is not None:
             stream = BucketedStream(
@@ -545,19 +578,19 @@ def count_reads_device(
     with ring:
         for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
             with m.span("count.step"):
-                packed, inv = pack_on_device(codes, has_invalid)
+                packed, ext = pack_batch(codes, ambiguous_counts)
                 if pending is not None:
                     if pending.add(extract_canonical_flat(
-                            packed, length, cfg.k, inv_bits=inv)):
+                            packed, length, cfg.k, **ext)):
                         table = pending.merge(table, stream)
                 elif stream is not None:
                     stream.add(extract_canonical_flat(packed, length, cfg.k,
-                                                      inv_bits=inv))
+                                                      **ext))
                 elif table is None:
-                    table = _count_batch(packed, length, cfg.k, inv,
-                                         out_cap=capacity)
+                    table = _count_batch(packed, length, cfg.k,
+                                         out_cap=capacity, **ext)
                 else:
-                    table = _stream_step(table, packed, length, cfg.k, inv)
+                    table = _stream_step(table, packed, length, cfg.k, **ext)
             # the table after batch i, whatever is already uploaded
             cursor.after(i, (pending is None or pending.at_boundary)
                          and (stream is None or stream.at_boundary))
@@ -735,7 +768,11 @@ def assemble_torch(
     taken in the metrics' ``merge_stride`` counter).
     emit: ``"unitigs"`` stops contigs at junctions, ``"euler"`` spells
     Eulerian walks. Contigs equal ``assemble_tpu``'s and
-    ``assemble_oracle``'s.
+    ``assemble_oracle``'s. A run leaves the counters
+    ``ambiguous_batches`` (batches in which the card found an ambiguous
+    base) and, where any window was masked for one, ``masked_windows``,
+    read once after the count's closing synchronise; both cover every
+    read, on a resumed run too.
     """
     dev = resolve_device(device)
     if emit not in ("unitigs", "euler"):
@@ -744,17 +781,15 @@ def assemble_torch(
     wc = reads.shape[1] - cfg.k + 1
     m.count("reads", reads.shape[0])
     m.count("kmers", reads.shape[0] * wc)
-    with m.span("scan"):
-        if has_ambiguous(reads):
-            from ..ops.kmer_ref import window_valid_np
-
-            m.count("masked_windows",
-                    int((~window_valid_np(reads, cfg.k)).sum()))
     resume_stream = (
         resume_from is not None and is_stream_checkpoint(resume_from)
     )
+    ambiguous = torch.zeros(2, dtype=torch.int64, device=dev)
     if resume_from is not None and not resume_stream:
         table = load_table(resume_from, dev)
+        # the reference counts the masked windows of every read, whatever
+        # it resumes: the reads that made the table
+        count_ambiguous(reads, cfg.k, cfg.batch_reads, dev, ambiguous)
     else:
         with timed_stage(m, "count", dev):
             table = count_reads_device(
@@ -765,7 +800,14 @@ def assemble_torch(
                 stream_checkpoint_every=stream_checkpoint_every,
                 resume_stream_from=resume_from if resume_stream else None,
                 bucketed=bucketed, merge_stride=merge_stride, metrics=m,
+                ambiguous_counts=ambiguous,
             )
+    # after the count stage's synchronise: 16 bytes, no wait
+    masked, batches = ambiguous.tolist()
+    if masked:
+        m.count("masked_windows", masked)
+    m.count("ambiguous_batches", batches)
+    if resume_from is None or resume_stream:
         # the reads in, the keys out and in again to the sort; the
         # reference's figure has 4-byte words, the port's keys are
         # n_limbs(k) 8-byte limbs

@@ -92,6 +92,8 @@ def kmer_extract_fn():
         ctypes.c_longlong,  # packed row stride (bytes)
         ctypes.c_void_p,  # invalid bits (may be NULL)
         ctypes.c_longlong,  # invalid row stride (bytes)
+        ctypes.c_void_p,  # the batch's int32 flag (may be NULL)
+        ctypes.c_void_p,  # int64 count of masked windows (may be NULL)
         ctypes.c_void_p,  # out limbs
         ctypes.c_longlong,  # batch rows
         ctypes.c_longlong,  # n_valid
@@ -102,6 +104,25 @@ def kmer_extract_fn():
         ctypes.c_int,  # shared words for a block's packed codes
         ctypes.c_int,  # shared words for a block's invalid bits
         ctypes.c_longlong,  # dynamic shared memory (bytes)
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def pack_reads_fn():
+    """The ``pack_reads_launch`` C entry (in the library of
+    ``kmer_extract``) with its ctypes signature."""
+    fn = load("kmer_extract").pack_reads_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # raw codes [rows, L] uint8
+        ctypes.c_longlong,  # rows
+        ctypes.c_int,  # read_len
+        ctypes.c_void_p,  # packed codes out
+        ctypes.c_void_p,  # invalid bits out
+        ctypes.c_void_p,  # the batch's int32 flag out
+        ctypes.c_void_p,  # int64 count of batches with an N (may be NULL)
         ctypes.c_void_p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int

@@ -26,10 +26,15 @@ few whole reads in shared memory and writes their keys as one
 contiguous span of 16-byte stores. ``launch_plan`` sizes the block from
 L and k; a shape whose rows do not fit a block's shared memory raises.
 
-``pack_codes_device`` and ``pack_invalid_device`` make the kernel's
-inputs from raw one-byte codes on the device (plain torch ops, the bytes
-of ``utils.dna.pack_codes`` / ``pack_invalid_mask``): the streamed
-counters upload raw codes and pack them there.
+``pack_on_device`` makes the kernel's inputs from raw one-byte codes on
+the device, the bytes of ``utils.dna.pack_codes`` / ``pack_invalid_mask``,
+and finds the batch's ambiguous bases in the same pass (its flag): on a
+CUDA tensor the hand-written ``pack_reads_kernel`` (in
+``csrc/kmer_extract.cu``, one library with the extraction), on a CPU
+tensor its plain version, ``pack_codes_device`` and
+``pack_invalid_device``. The streamed counters upload raw codes and pack
+them there; the extraction kernel reads the flag and takes the invalid
+bits only in a batch that has one.
 
 Output contract: ``[B * (L-k+1), n_limbs]`` int64 limbs (``utils.keys``
 layout), row-major over (read, window). Windows of rows >= ``n_valid``
@@ -99,6 +104,82 @@ def pack_invalid_device(codes: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
+# groups of 8 codes a pack launch takes at most (the pack kernel's
+# thread indices are 32-bit)
+PACK_MAX_GROUPS = 0x7FFFFFFF
+
+
+class PackedReads(NamedTuple):
+    """A batch packed on its device: the extraction kernel's inputs."""
+
+    packed: torch.Tensor  # [B, ceil(L/4)] uint8, ``utils.dna.pack_codes``
+    inv: torch.Tensor  # [B, ceil(L/8)] uint8, ``pack_invalid_mask`` or zeros
+    flag: torch.Tensor  # 0-d int32: non-zero iff any code is > 3
+
+
+def pack_on_device(codes: torch.Tensor,
+                   batches: torch.Tensor | None = None) -> PackedReads:
+    """Raw [B, L] uint8 codes on their device -> ``PackedReads``, in one
+    pass: the packed codes, the invalid bits (zeros without an ambiguous
+    base) and the batch's flag, all on the device; the host waits for
+    nothing. ``batches`` (an int64 0-d counter on the same device, or
+    None) gains 1 if the batch holds an ambiguous base.
+
+    A CUDA tensor launches ``pack_reads_kernel`` (``csrc/kmer_extract.cu``)
+    on the current stream (counted in ``pack_on_device.launches``) or
+    raises; a CPU tensor runs the plain version, ``pack_codes_device`` and
+    ``pack_invalid_device``.
+    """
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError(f"codes must be a 2-D uint8 tensor, got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    _check_counter(batches, torch.int64, codes.device, "batches")
+    if codes.device.type == "cpu":
+        flag = (codes > 3).any().to(torch.int32)
+        if batches is not None:
+            batches += flag
+        return PackedReads(pack_codes_device(codes),
+                           pack_invalid_device(codes), flag)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    if not codes.is_contiguous():
+        raise ValueError("codes must be contiguous")
+    b, length = codes.shape
+    if b * ((length + 7) // 8) > PACK_MAX_GROUPS:
+        raise ValueError(f"{b} reads of {length} bases pass the pack "
+                         f"kernel's {PACK_MAX_GROUPS} groups of 8 codes")
+    from ._build import pack_reads_fn
+
+    out = PackedReads(
+        codes.new_empty((b, (length + 3) // 4)),
+        codes.new_empty((b, (length + 7) // 8)),
+        torch.empty((), dtype=torch.int32, device=codes.device),
+    )
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = pack_reads_fn()(
+            codes.data_ptr(), b, length, out.packed.data_ptr(),
+            out.inv.data_ptr(), out.flag.data_ptr(),
+            None if batches is None else batches.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"pack_reads launch failed: CUDA error {err} "
+                           f"({b} reads of {length} bases)")
+    pack_on_device.launches += 1
+    return out
+
+
+pack_on_device.launches = 0
+
+
+def _check_counter(t, dtype, device, what) -> None:
+    """A one-element counter or flag on ``device`` (or None)."""
+    if t is not None and (t.dtype != dtype or t.numel() != 1
+                          or t.device != device):
+        raise ValueError(f"{what} must be one {dtype} on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def extract_canonical_codes_ref(
     codes: torch.Tensor,
     k: int,
@@ -163,16 +244,28 @@ def extract_canonical_flat_ref(
     k: int,
     n_valid: int | None = None,
     inv_bits: torch.Tensor | None = None,
+    flag: torch.Tensor | None = None,
+    masked: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain torch version of the kernel: packed codes (+ packed invalid
-    bits) -> [B*(L-k+1), n_limbs] canonical limbs."""
+    bits, read only where ``flag`` is None or non-zero) -> [B*(L-k+1),
+    n_limbs] canonical limbs; ``masked`` gains the windows of rows <
+    n_valid that the invalid bits mask. Nothing waits for the device."""
+    if inv_bits is not None and flag is not None:
+        inv_bits = inv_bits * (flag != 0)
     bad = None if inv_bits is None else unpack_invalid_mask(inv_bits, read_len)
-    return extract_canonical_codes_ref(
+    out = extract_canonical_codes_ref(
         unpack_codes(packed, read_len), k, n_valid, bad
     )
+    if masked is not None and inv_bits is not None:
+        # in rows < n_valid only the invalid bits make a sentinel key
+        rows = packed.shape[0] if n_valid is None else n_valid
+        masked += (out[: rows * (read_len - k + 1), 0] == SENTINEL).sum()
+    return out
 
 
-def _check_args(packed, read_len, k, n_valid, inv_bits) -> int:
+def _check_args(packed, read_len, k, n_valid, inv_bits, flag=None,
+                masked=None) -> int:
     if packed.dtype != torch.uint8 or packed.dim() != 2:
         raise ValueError(
             f"packed codes must be a 2-D uint8 tensor, got {packed.dtype} "
@@ -204,6 +297,8 @@ def _check_args(packed, read_len, k, n_valid, inv_bits) -> int:
             raise ValueError("invalid bits and codes lie on different devices")
         if not inv_bits.is_contiguous():
             raise ValueError("invalid bits must be contiguous")
+    _check_counter(flag, torch.int32, packed.device, "flag")
+    _check_counter(masked, torch.int64, packed.device, "masked")
     return b
 
 
@@ -265,21 +360,31 @@ def extract_canonical_flat(
     k: int,
     n_valid: int | None = None,
     inv_bits: torch.Tensor | None = None,
+    flag: torch.Tensor | None = None,
+    masked: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """[B, ceil(L/4)] packed reads -> [B*(L-k+1), n_limbs] canonical limbs.
+
+    ``flag`` (the batch's 0-d int32 from ``pack_on_device``): the invalid
+    bits are read only where it is non-zero, so a batch without an
+    ambiguous base costs what one without bits does; without a flag they
+    are always read. ``masked`` (a 0-d int64 counter) gains the windows of
+    rows < n_valid that the invalid bits mask, on the device.
 
     On a CUDA tensor this launches ``csrc/kmer_extract.cu`` on the current
     stream (and raises if the shape does not fit the kernel, or the build
     or the launch fails); on a CPU tensor it runs
     :func:`extract_canonical_flat_ref`. Any B is accepted.
     """
-    _check_args(packed, read_len, k, n_valid, inv_bits)
+    _check_args(packed, read_len, k, n_valid, inv_bits, flag, masked)
     if packed.device.type == "cpu":
-        return extract_canonical_flat_ref(packed, read_len, k, n_valid, inv_bits)
+        return extract_canonical_flat_ref(packed, read_len, k, n_valid,
+                                          inv_bits, flag, masked)
     if packed.device.type != "cuda":
         raise ValueError(f"unsupported device {packed.device}")
     return launch_kernel(
-        packed, read_len, k, n_valid, inv_bits, launch_plan(read_len, k)
+        packed, read_len, k, n_valid, inv_bits, launch_plan(read_len, k),
+        flag, masked,
     )
 
 
@@ -303,7 +408,8 @@ def kernel_bound_ms(
     return ops_ms, "operations", nbytes
 
 
-def launch_kernel(packed, read_len, k, n_valid, inv_bits, plan: LaunchPlan):
+def launch_kernel(packed, read_len, k, n_valid, inv_bits, plan: LaunchPlan,
+                  flag=None, masked=None):
     """Launch ``csrc/kmer_extract.cu`` with ``plan`` on checked CUDA
     arguments (the wrapper's second half). Counts the launch in
     ``extract_canonical_flat.launches``."""
@@ -323,6 +429,8 @@ def launch_kernel(packed, read_len, k, n_valid, inv_bits, plan: LaunchPlan):
             packed.stride(0),
             None if inv_bits is None else inv_bits.data_ptr(),
             0 if inv_bits is None else inv_bits.stride(0),
+            None if flag is None else flag.data_ptr(),
+            None if masked is None else masked.data_ptr(),
             out.data_ptr(),
             b,
             b if n_valid is None else n_valid,

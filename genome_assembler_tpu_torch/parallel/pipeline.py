@@ -54,7 +54,6 @@ from ..models.pipeline import (
     bucket_plan,
     checkpoint_kind,
     load_table,
-    pack_on_device,
     require_checkpoint_kind,
     stride_taken,
     timed_stage,
@@ -72,6 +71,7 @@ from ..ops.count_torch import CountTable, compact_front_sorted
 from ..ops.hash_torch import mix_words, owner_of
 from ..ops.kmer_torch import (
     extract_canonical_flat,
+    pack_on_device,
     unpack_codes,
     unpack_invalid_mask,
 )
@@ -586,11 +586,10 @@ def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int,
     block on a single-device mesh, else one [per_dev, L] block a shard) ->
     (packed per shard, invalid bits per shard or None). A single-device
     mesh packs once and hands out contiguous row views."""
-    planes = [pack_on_device(codes, any_invalid) for codes in blocks]
+    planes = [pack_on_device(codes)[:2] for codes in blocks]
     if mesh.single_device:
         planes = [
-            tuple(None if x is None else x[i * per_dev : (i + 1) * per_dev]
-                  for x in planes[0])
+            tuple(x[i * per_dev : (i + 1) * per_dev] for x in planes[0])
             for i in range(mesh.local_size)
         ]
     packed, inv = (list(col) for col in zip(*planes))

@@ -57,8 +57,12 @@ def test_runner_passes_and_matches_the_reference(cid, monkeypatch):
         derived = got.detail["metrics"]["derived"]
         assert derived["count_bytes_per_s"] > 0
         assert set(derived) == set(want.detail["metrics"]["derived"])
-        assert set(got.detail["metrics"]["counters"]) == set(
-            want.detail["metrics"]["counters"])
+        # the port's one counter more: the batches in which the card
+        # found an N (none in CFG-2's reads)
+        counters = got.detail["metrics"]["counters"]
+        assert set(counters) == set(want.detail["metrics"]["counters"]) | {
+            "ambiguous_batches"}
+        assert counters["ambiguous_batches"] == 0
 
 
 def test_to_json_is_one_line_with_the_reference_keys():

@@ -150,12 +150,17 @@ def test_trace_dir_and_metrics_out(reads_file, tmp_path, backend):
     assert set(report["stages_s"]) == STAGES
     assert report["counters"]["reads"] > 0 and report["device"] == "cpu"
     assert report["derived"]["kmers_per_s"] > 0
+    # the CPU packs with the plain version: no pack kernel launched
+    assert report["pack_launches"] == 0
     # stage wall times in the trace and in the report are the same clocks
     assert 0 < wall <= report["stages_s"]["count"] + 0.01
     if backend == "torch":
         assert report["derived"]["count_bytes_per_s"] > 0
         assert 0 <= report["derived"]["hbm_roofline_frac"] < 1
         assert "shards" not in report
+        # the batches in which the device found an N (the simulated
+        # reads hold none)
+        assert report["counters"]["ambiguous_batches"] == 0
     else:
         assert report["shards"] == 2
         assert report["shard_devices"] == ["cpu", "cpu"]

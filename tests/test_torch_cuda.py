@@ -112,6 +112,100 @@ def test_kernel_matches_plain_version(cuda_device, k):
     assert got.is_cuda and torch.equal(got, want)
 
 
+PACK_CASES = {  # reads, share of Ns, an N in the last base of the last row
+    "no_n": (1024, 0.0, False),
+    "ns": (1024, 0.01, False),
+    "ragged_last_batch": (333, 0.01, False),
+    "n_in_last_row_only": (1024, 0.0, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+@pytest.mark.parametrize("length", [99, 100, 101, 250])
+def test_pack_kernel_matches_plain_version(cuda_device, length, case):
+    """The pack kernel (``csrc/kmer_extract.cu``) against its plain
+    version, byte for byte, and its flag and batch count; whole, and from read 1 on (rows off a word
+    boundary where L is not a multiple of 4)."""
+    b, n_rate, last = PACK_CASES[case]
+    rng = np.random.default_rng(length * b)
+    reads = rng.integers(0, 4, size=(b, length), dtype=np.uint8)
+    reads[rng.random(reads.shape) < n_rate] = 4
+    if last:
+        reads[-1, -1] = 200
+    batches = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    for first in (0, 1):
+        rows = reads[first:]
+        codes = torch.from_numpy(reads).to(cuda_device)[first:]
+        before = kmer_torch.pack_on_device.launches
+        got = kmer_torch.pack_on_device(codes, batches)
+        assert kmer_torch.pack_on_device.launches == before + 1
+        want = kmer_torch.pack_on_device(codes.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(got.packed.cpu(), want.packed)
+        assert torch.equal(got.inv.cpu(), want.inv)
+        assert bool(got.flag) == bool(want.flag) == bool((rows > 3).any())
+        np.testing.assert_array_equal(got.packed.cpu().numpy(),
+                                      ref.pack_codes(rows))
+        bits = ref.pack_invalid_mask(rows)
+        np.testing.assert_array_equal(
+            got.inv.cpu().numpy(),
+            np.zeros_like(got.inv.cpu().numpy()) if bits is None else bits)
+    assert int(batches) == (2 if (n_rate or last) else 0)
+
+
+@pytest.mark.parametrize("k", [21, 31, 41])
+@pytest.mark.parametrize("n_rate", [0.0, 0.01], ids=["no_n", "ns"])
+def test_extraction_reads_the_flag(cuda_device, k, n_rate):
+    """Flag at 0: the kernel equals its run without invalid bits (and
+    leaves them unread: a zeroed flag over bits with Ns gives the same);
+    flag set: the plain version's keys, and the windows the bits mask in
+    rows < n_valid counted on the card."""
+    from genome_assembler_tpu_torch.ops.kmer_ref import window_valid_np
+
+    rng = np.random.default_rng(k)
+    reads = rng.integers(0, 4, size=(1000, 100), dtype=np.uint8)
+    reads[rng.random(reads.shape) < n_rate] = 4
+    p = kmer_torch.pack_on_device(torch.from_numpy(reads).to(cuda_device))
+    masked = torch.zeros((), dtype=torch.int64, device=cuda_device)
+    got = kmer_torch.extract_canonical_flat(p.packed, 100, k, 777, p.inv,
+                                            flag=p.flag, masked=masked)
+    want = kmer_torch.extract_canonical_flat_ref(
+        p.packed.cpu(), 100, k, 777, p.inv.cpu())
+    no_bits = kmer_torch.extract_canonical_flat(p.packed, 100, k, 777)
+    unread = kmer_torch.extract_canonical_flat(
+        p.packed, 100, k, 777, p.inv, flag=torch.zeros_like(p.flag),
+        masked=masked)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(unread, no_bits)
+    if not n_rate:
+        assert torch.equal(got, no_bits)
+    assert int(masked) == int((~window_valid_np(reads[:777], k)).sum())
+    assert (int(masked) > 0) == bool(n_rate)
+
+
+def test_ambiguous_counters_on_cuda_equal_cpu(cuda_device):
+    """A streamed assembly with Ns (12 batches): contigs, masked_windows
+    and ambiguous_batches as on the CPU, one pack launch a batch."""
+    from genome_assembler_tpu_torch.utils.metrics import Metrics
+
+    reads = _noisy_reads()  # 8000 reads
+    reads[700:1400][reads[700:1400] > 3] = 0  # a batch without an N
+    cfg = ref.AssemblyConfig(k=31, min_count=3, read_len=100, batch_reads=700)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        m = Metrics()
+        before = kmer_torch.pack_on_device.launches
+        contigs = assemble_torch(reads, cfg, device=dev, metrics=m,
+                                 table_capacity=1 << 18)
+        runs.append((contigs, m.counters["masked_windows"],
+                     m.counters["ambiguous_batches"],
+                     kmer_torch.pack_on_device.launches - before))
+    (gpu, gm, gb, launches), (cpu, cm, cb, _) = runs
+    assert gpu == cpu and gm == cm > 0 and gb == cb == 11
+    assert launches == 12
+
+
 def test_assembly_on_cuda_matches_oracle(cuda_device):
     genome = ref.simulate_genome(5000, seed=21)
     rs = ref.simulate_reads(genome, coverage=50, read_len=100, seed=22,
@@ -471,6 +565,10 @@ def test_bench_torch_on_the_card(cuda_device):
     # cold and warm, one shot each
     assert d["extract_launches"] == {
         "count": 2, "extraction": 22, "stream": 6, "assemble": 2}
+    # packed on the card: the streamed counts' 4 batches and the
+    # assemblies' 2 (the count and single-shot legs pack on the host)
+    assert d["pack_launches"] == {
+        "count": 0, "extraction": 0, "stream": 4, "assemble": 2}
 
 
 def test_run_large_torch_on_the_card(cuda_device):
@@ -483,6 +581,7 @@ def test_run_large_torch_on_the_card(cuda_device):
     assert line["exact_single_contig"] is True
     assert line["exact_kmer_content"] is True
     assert line["peak_gib"] > 0 and line["extract_launches"] == 2
+    assert line["pack_launches"] == 2
     seq = ref.decode_seq(ref.simulate_genome(30_000, seed=9))
     for k in (31, 41):
         assert torch.equal(tool.canonical_keys(seq, k, cuda_device).cpu(),

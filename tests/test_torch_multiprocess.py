@@ -95,6 +95,7 @@ def test_ranks_assemble_to_the_oracle_and_jax_contigs(
         assert derived["reads_per_s_per_host"] == pytest.approx(
             derived["reads_per_s"] / world, rel=1e-3)
         assert report["kernel_launches"] == 0  # the CPU runs the plain version
+        assert report["pack_launches"] == 0
         # a rank uploads its own rows only
         assert report["counters"]["h2d_bytes_reads"] == reads.size // world
     assert all("process(es)" in err for err in res.stderr)

@@ -80,6 +80,7 @@ def test_non_timing_fields_equal_run_large_py(jax_lines, stride):
     assert got["exact_kmer_content"] is True
     assert got["device"] == "cpu" and got["card"] is None
     assert got["peak_gib"] is None and got["extract_launches"] == 0
+    assert got["pack_launches"] == 0
     # one batch of 6,000 reads: no stride is taken, the table stays flat
     assert got["merge_stride"] == 1 and got["bucketed"] is False
     assert got["table_capacity"] == 65_536
@@ -131,7 +132,7 @@ def test_canonical_keys_cover_every_window_in_order(k, monkeypatch):
     got = tool.canonical_keys(seq, k, torch.device("cpu"))
     read = torch.from_numpy(tool.encode_seq(seq))[None, :]
     want = tool.kmer.extract_canonical_flat(
-        tool.pack_on_device(read, False)[0], len(seq), k)
+        tool.pack_on_device(read).packed, len(seq), k)
     assert got.shape == (len(seq) - k + 1, want.shape[1])
     assert torch.equal(got, want)
 

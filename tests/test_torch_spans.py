@@ -82,8 +82,9 @@ def test_streamed_assembly_spans(reads, tmp_path, kw):
     assert contigs == pipeline.assemble_torch(
         reads, _cfg(), device="cpu", table_capacity=CAP, **kw)
     trace = read_trace(str(tmp_path))
-    [scan], [count] = trace.stages["scan"], trace.stages["count"]
-    assert scan[1] <= count[0]
+    [count] = trace.stages["count"]
+    # the card finds the Ns in the pack: no host scan before or in count
+    assert not {"scan", "count.scan"} & set(trace.stages)
     for name, spans in trace.stages.items():
         if name.startswith("count."):
             assert all(_inside(s, [count]) for s in spans), name
@@ -95,7 +96,7 @@ def test_streamed_assembly_spans(reads, tmp_path, kw):
     # the operator's copy: every span with its calls (no ring wait off
     # the card), and the stages and their rates as before
     report = m.report()
-    calls = {"scan": 1, "count.scan": 1, "count.setup": 1,
+    calls = {"count.setup": 1,
              "count.fill": batches, "count.step": batches,
              "count.finish": 1}
     calls.update({f"{stage}.sync": 1 for stage in STAGES})
@@ -112,7 +113,7 @@ def test_single_shot_count_spans(reads):
     pipeline.assemble_torch(reads, _cfg(), device="cpu", metrics=m)
     assert {k: n for k, (_, n) in m.spans.items()
             if k.startswith("count.") and k != "count.sync"} == {
-        "count.scan": 1, "count.fill": 1, "count.step": 1}
+        "count.fill": 1, "count.step": 1}
 
 
 def test_spans_add_no_synchronise(reads, monkeypatch):

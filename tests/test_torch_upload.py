@@ -50,21 +50,33 @@ def reads():
 def test_device_pack_bytes_equal_the_reference(length):
     rng = np.random.default_rng(length)
     codes = rng.integers(0, 4, size=(37, length), dtype=np.uint8)
-    packed, inv = pipeline.pack_on_device(torch.from_numpy(codes), False)
-    assert inv is None and packed.dtype == torch.uint8
+    batches = torch.zeros((), dtype=torch.int64)
+    packed, zeros, flag = pipeline.pack_on_device(torch.from_numpy(codes),
+                                                  batches)
+    assert packed.dtype == torch.uint8
     assert packed.is_contiguous()
     np.testing.assert_array_equal(packed.numpy(), pack_codes(codes))
-    # no ambiguous base: the reference sends no bits, the port zeros
+    # no ambiguous base: the reference sends no bits, the port zeros and
+    # a flag at 0
     assert pack_invalid_mask(codes) is None
-    _, zeros = pipeline.pack_on_device(torch.from_numpy(codes), True)
     assert zeros.shape == (37, (length + 7) // 8) and not zeros.any()
+    assert flag.dtype == torch.int32 and flag.shape == () and int(flag) == 0
+    assert int(batches) == 0
     codes[rng.random(codes.shape) < 0.1] = 4
     codes[0, 0] = codes[1, -1] = 4
     codes[2, :] = 4
-    packed, inv = pipeline.pack_on_device(torch.from_numpy(codes), True)
+    packed, inv, flag = pipeline.pack_on_device(torch.from_numpy(codes),
+                                                batches)
     np.testing.assert_array_equal(packed.numpy(), pack_codes(codes))
     np.testing.assert_array_equal(inv.numpy(), pack_invalid_mask(codes))
     assert inv.is_contiguous() and inv.dtype == torch.uint8
+    assert int(flag) != 0 and int(batches) == 1
+    # an N in the last base of the last row alone sets the flag
+    clean = rng.integers(0, 4, size=(5, length), dtype=np.uint8)
+    clean[-1, -1] = 5
+    assert int(pipeline.pack_on_device(torch.from_numpy(clean),
+                                       batches).flag) != 0
+    assert int(batches) == 2
     # and the kernel's plain version reads them back as the same reads
     np.testing.assert_array_equal(
         kmer_torch.unpack_codes(packed, length).numpy(), codes & 3)
@@ -198,18 +210,123 @@ def test_streamed_count_overflow_equals_jax(reads):
 
 
 def test_streamed_count_of_clean_reads_sends_no_bits(monkeypatch):
+    """Clean reads: every batch's flag is 0, so the kernel never reads
+    the invalid bits (all zeros) that the pack wrote."""
     clean = _reads(n_rate=0.0)
     seen = []
     real = pipeline.extract_canonical_flat
 
-    def spy(packed, read_len, k, n_valid=None, inv_bits=None):
-        seen.append(inv_bits is None)
-        return real(packed, read_len, k, n_valid, inv_bits)
+    def spy(packed, read_len, k, n_valid=None, inv_bits=None, flag=None,
+            masked=None):
+        seen.append((int(flag), bool(inv_bits.any())))
+        return real(packed, read_len, k, n_valid, inv_bits, flag, masked)
 
     monkeypatch.setattr(pipeline, "extract_canonical_flat", spy)
     cfg = AssemblyConfig(k=K, read_len=60, batch_reads=150)
     pipeline.count_reads_device(clean, cfg, device="cpu", table_capacity=CAP)
-    assert seen == [True, True, True]
+    assert seen == [(0, False)] * 3
+
+
+COUNT_PATHS = {
+    "single_shot": {},
+    "flat": dict(table_capacity=CAP, bucketed="off"),
+    "bucketed": dict(table_capacity=CAP, bucketed="on"),
+    "stride2": dict(table_capacity=CAP, bucketed="off", merge_stride=2),
+}
+
+
+@pytest.mark.parametrize("n_rate", [0.004, 0.0], ids=["ns", "clean"])
+@pytest.mark.parametrize("path", sorted(COUNT_PATHS))
+def test_count_finds_ambiguous_bases_on_the_device(monkeypatch, path,
+                                                   n_rate):
+    """The pack finds the Ns batch by batch: no host scan of the reads
+    (``has_ambiguous``, ``window_valid_np``) in ``assemble_torch`` or
+    ``count_reads_device``; the table and the contigs equal the plain
+    reference's; ``masked_windows`` and ``ambiguous_batches`` count what
+    the host scan would have."""
+    from genome_assembler_tpu_torch.host.dbg import counts_to_dict
+    from genome_assembler_tpu_torch.models.oracle import assemble_oracle
+    from genome_assembler_tpu_torch.ops import kmer_ref
+    from genome_assembler_tpu_torch.utils import dna
+
+    reads = _reads(n_rate=n_rate)
+    second = reads[96:192]
+    second[second > 3] = 0  # a streamed batch without an N among four with
+    cfg = AssemblyConfig(k=K, read_len=60, batch_reads=96)
+    kw = COUNT_PATHS[path]
+    with_n = (4 if kw else 1) if n_rate else 0
+    masked = int((~kmer_ref.window_valid_np(reads, K)).sum())
+    assert (masked > 0) == bool(n_rate)
+    want_table = counts_to_dict(*kmer_ref.count_canonical_np(reads, K), K)
+    want_contigs = assemble_oracle(reads, cfg)
+
+    def host_scan(*args, **kwargs):
+        raise AssertionError("the reads were scanned on the host")
+
+    monkeypatch.setattr(dna, "has_ambiguous", host_scan)
+    monkeypatch.setattr(kmer_ref, "window_valid_np", host_scan)
+    counts = torch.zeros(2, dtype=torch.int64)
+    table = pipeline.count_reads_device(reads, cfg, device="cpu",
+                                        ambiguous_counts=counts, **kw)
+    assert pipeline.table_to_host_counts(table, K) == want_table
+    assert counts.tolist() == [masked, with_n]
+    m = Metrics()
+    assert pipeline.assemble_torch(reads, cfg, device="cpu", metrics=m,
+                                   **kw) == want_contigs
+    assert m.counters["ambiguous_batches"] == with_n
+    assert m.counters.get("masked_windows", 0) == masked
+    assert ("masked_windows" in m.counters) == bool(n_rate)
+
+
+@pytest.mark.parametrize("resume", ["stream", "jax_stream", "table"])
+def test_resumed_run_counts_the_ambiguous_bases_of_every_read(
+        monkeypatch, tmp_path, resume):
+    """``assemble_tpu`` counts the masked windows of every read whatever it
+    resumes; so does the port, on the device: after a stream resume (its
+    own checkpoint or the JAX package's) the batches before the cursor
+    too, after a table resume all of them. No host scan either way."""
+    from genome_assembler_tpu.utils.metrics import Metrics as JaxMetrics
+    from genome_assembler_tpu_torch.ops import kmer_ref
+    from genome_assembler_tpu_torch.utils import dna
+
+    reads = _reads()
+    cfg = AssemblyConfig(k=K, read_len=60, batch_reads=96)
+    jm = JaxMetrics()
+    want = jax_pipeline.assemble_tpu(reads, cfg, metrics=jm,
+                                     table_capacity=CAP)
+    with_n = sum(bool((reads[s : s + 96] > 3).any())
+                 for s in range(0, reads.shape[0], 96))
+    assert jm.counters["masked_windows"] > 0 and with_n == 5
+    ck = str(tmp_path / "ck.npz")
+    if resume == "stream":
+        with pytest.raises(RuntimeError, match="fault injection"):
+            pipeline.count_reads_device(
+                reads, cfg, device="cpu", table_capacity=CAP,
+                stream_checkpoint=ck, stream_checkpoint_every=1,
+                abort_after_batch=2)
+    elif resume == "jax_stream":
+        with monkeypatch.context() as mp:
+            mp.setenv("GA_STREAM_ABORT_AFTER_BATCH", "3")
+            with pytest.raises(RuntimeError, match="fault injection"):
+                jax_pipeline.count_reads_device(
+                    reads, cfg, table_capacity=CAP, stream_checkpoint=ck,
+                    stream_checkpoint_every=1)
+    else:
+        pipeline.assemble_torch(reads, cfg, device="cpu",
+                                table_capacity=CAP, checkpoint=ck)
+    assert pipeline.is_stream_checkpoint(ck) == (resume != "table")
+
+    def host_scan(*args, **kwargs):
+        raise AssertionError("the reads were scanned on the host")
+
+    monkeypatch.setattr(dna, "has_ambiguous", host_scan)
+    monkeypatch.setattr(kmer_ref, "window_valid_np", host_scan)
+    m = Metrics()
+    assert pipeline.assemble_torch(reads, cfg, device="cpu", metrics=m,
+                                   table_capacity=CAP,
+                                   resume_from=ck) == want
+    assert m.counters["masked_windows"] == jm.counters["masked_windows"]
+    assert m.counters["ambiguous_batches"] == with_n
 
 
 def test_count_bytes_and_report_keys_equal_the_reference(reads):
@@ -222,8 +339,12 @@ def test_count_bytes_and_report_keys_equal_the_reference(reads):
     assert contigs == jax_pipeline.assemble_tpu(reads, cfg, metrics=jm,
                                                 table_capacity=CAP)
     got, want = m.report(), jm.report()
+    # the port's one counter more: the batches in which the card found an N
+    want["counters"]["ambiguous_batches"] = 3
     for part in ("stages_s", "counters", "derived"):
         assert set(got[part]) == set(want[part]), part
+    assert m.counters["masked_windows"] == jm.counters["masked_windows"]
+    assert m.counters["ambiguous_batches"] == 3
     wc = 60 - K + 1
     # one 8-byte limb a key here, one 4-byte word there
     assert m.counters["count_bytes"] == reads.size + 2 * reads.shape[0] * wc * 8

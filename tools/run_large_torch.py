@@ -23,8 +23,8 @@ and adds the card (``nvidia-smi``'s name and power limit), the peak
 device memory of the process (``peak_gib``, null on the CPU) and of its
 host memory (``host_peak_gib``; ``sim_host_peak_gib`` once the reads are
 simulated), the kernel's build (``build_s``, before
-the cold run), the extraction kernel's launches over the cold and warm
-runs, and the streamed table's layout: the merge stride the count
+the cold run), the extraction and the pack kernel's launches over the
+cold and warm runs (``extract_launches``, ``pack_launches``), and the streamed table's layout: the merge stride the count
 recorded in its metrics, the rows a merge sorts at it, and whether
 ``auto`` took the buckets there. With ``--trace-dir DIR`` one more warm
 run goes under ``torch.profiler`` (``utils/metrics.py::profiler_trace``,
@@ -104,10 +104,10 @@ def canonical_keys(seq: str, k: int, dev: torch.device) -> torch.Tensor:
     padded[: len(codes)] = codes
     cut = np.lib.stride_tricks.as_strided(
         padded, (rows, ROW_WINDOWS + k - 1), (ROW_WINDOWS, 1))
-    packed, inv = pack_on_device(
-        torch.from_numpy(np.ascontiguousarray(cut)).to(dev), True)
+    packed, inv, flag = pack_on_device(
+        torch.from_numpy(np.ascontiguousarray(cut)).to(dev))
     keys = kmer.extract_canonical_flat(packed, ROW_WINDOWS + k - 1, k,
-                                       inv_bits=inv)
+                                       inv_bits=inv, flag=flag)
     return keys[:n_win]
 
 
@@ -179,7 +179,7 @@ def run(args: argparse.Namespace) -> dict:
     print(f"# genome {args.genome_mb} Mb, {rs.num_reads} reads, cap "
           f"{cap / 1e6:.0f}M, sim {sim_s:.0f}s", file=sys.stderr, flush=True)
 
-    kmer.extract_canonical_flat.launches = 0
+    kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
 
     def assemble(metrics):
         return assemble_torch(rs.codes, cfg, device=dev, metrics=metrics,
@@ -198,6 +198,7 @@ def run(args: argparse.Namespace) -> dict:
     warm_s, m = min(warm_runs, key=lambda wm: wm[0])
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
     launches = kmer.extract_canonical_flat.launches
+    pack_launches = kmer.pack_on_device.launches
 
     # the layout the count took: its recorded stride (1 unless a stride
     # was asked for) and the reference's bound on the rows of one merge
@@ -248,6 +249,7 @@ def run(args: argparse.Namespace) -> dict:
         "sim_host_peak_gib": sim_host_gib,
         "host_peak_gib": host_peak_gib(),
         "extract_launches": launches,
+        "pack_launches": pack_launches,
         "traced": traced,
     }
 
