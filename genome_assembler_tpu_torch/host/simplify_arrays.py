@@ -43,7 +43,7 @@ import dataclasses
 
 import numpy as np
 
-from ..utils.dna import canonical_str
+from ..utils.dna import canonical_str, decode_seq, decode_seqs
 from .dbg import Unitig, UnitigGraph, build_unitig_graph
 
 _MAX_ROUNDS = 64  # matches host.simplify._MAX_ROUNDS
@@ -70,13 +70,7 @@ class UnitigArrays:
         return len(self.edges)
 
     def seq(self, i: int) -> str:
-        from .dbg import _DECODE_LUT
-
-        return (
-            _DECODE_LUT[self.buf[self.off[i] : self.off[i + 1]]]
-            .tobytes()
-            .decode()
-        )
+        return decode_seq(self.buf[self.off[i] : self.off[i + 1]])
 
 
 def build_unitig_arrays(
@@ -177,22 +171,18 @@ def from_unitigs(unitigs: list[Unitig], k: int) -> UnitigArrays:
 
 
 def to_unitig_list(ua: UnitigArrays) -> list[Unitig]:
-    """Decode columnar unitigs into Unitig objects (one bulk LUT pass).
+    """Decode columnar unitigs into Unitig objects (a byte-table pass a
+    unitig, ``decode_seqs``).
 
     The single decode surface — to_unitig_graph and the spell wrapper
     host.dbg.spell_device_unitigs share it.
     """
-    from .dbg import _DECODE_LUT
-
-    raw = _DECODE_LUT[ua.buf].tobytes()
     return [
-        Unitig(
-            seq=raw[ua.off[i] : ua.off[i + 1]].decode(),
-            cov_sum=int(ua.cov_sum[i]),
-            edges=int(ua.edges[i]),
-            k=ua.k,
+        Unitig(seq=seq, cov_sum=cov, edges=edges, k=ua.k)
+        for seq, cov, edges in zip(
+            decode_seqs(ua.buf, ua.off), ua.cov_sum.tolist(),
+            ua.edges.tolist(),
         )
-        for i in range(ua.num)
     ]
 
 
@@ -231,8 +221,6 @@ class _Segs:
         return len(self.edges)
 
     def seq(self, i: int) -> str:
-        from .dbg import _DECODE_LUT
-
         lo, hi = self.uoff[i], self.uoff[i + 1]
         codes = np.concatenate(
             [
@@ -240,7 +228,7 @@ class _Segs:
                 for s, l in zip(self.seg_src[lo:hi], self.seg_len[lo:hi])
             ]
         )
-        return _DECODE_LUT[codes].tobytes().decode()
+        return decode_seq(codes)
 
 
 def _pack_keys(buf: np.ndarray, pos: np.ndarray, k1: int) -> np.ndarray:

@@ -17,8 +17,37 @@ the acceptance bar "equality up to reverse-complement and contig ordering"
 
 from __future__ import annotations
 
-from ..utils.dna import canonical_str
+import contextlib
+import contextvars
+
+from ..utils.dna import canonical_str, canonical_str_flipped
 from .dbg import UnitigGraph
+
+# the Metrics that emission inside a ``counted_into`` block counts into
+_COUNTED_INTO: contextvars.ContextVar = contextvars.ContextVar(
+    "emission_metrics", default=None
+)
+
+
+@contextlib.contextmanager
+def counted_into(metrics):
+    """Emission inside the block counts ``revcomp_bases`` into metrics:
+    the bases of every reverse complement it built (a linear contig taken
+    from its other strand; every cycle's core, canonicalised over both
+    strands). The pipelines' ``traverse`` stage counts so, and its call
+    stays ``emit_contigs(graph)``: a stand-in for emission may be a
+    function of the graph alone."""
+    token = _COUNTED_INTO.set(metrics)
+    try:
+        yield
+    finally:
+        _COUNTED_INTO.reset(token)
+
+
+def _count_revcomp_bases(n: int) -> None:
+    m = _COUNTED_INTO.get()
+    if m is not None:
+        m.count("revcomp_bases", n)
 
 
 def euler_walks(g: UnitigGraph) -> list[list[int]]:
@@ -153,18 +182,22 @@ def emit_contigs_with_cov(
     overlap = g.k - 1
     seen: set[str] = set()
     contigs: list[tuple[str, float]] = []
+    rc_bases = 0
     for u in g.unitigs:
         if u.start == u.end and u.edges > 1:
             # circular: drop the duplicated (k-1)-overlap, canonicalize the
             # rotation, and re-wrap for a linear representation
             core = canonical_cycle(u.seq[: len(u.seq) - overlap])
+            rc_bases += len(core)
             seq = core + core[:overlap]
         else:
-            seq = canonical_str(u.seq)
+            seq, flipped = canonical_str_flipped(u.seq)
+            rc_bases += len(seq) if flipped else 0
         if len(seq) >= min_len and seq not in seen:
             seen.add(seq)
             contigs.append((seq, u.cov))
     contigs.sort(key=lambda sc: (-len(sc[0]), sc[0]))
+    _count_revcomp_bases(rc_bases)
     return contigs
 
 
@@ -197,6 +230,7 @@ def emit_contigs_euler_with_cov(
     overlap = g.k - 1
     seen: set[str] = set()
     contigs: list[tuple[str, float]] = []
+    rc_bases = 0
     for walk in euler_walks(g):
         seq = spell_walk(g, walk)
         edges = sum(g.unitigs[i].edges for i in walk)
@@ -207,13 +241,16 @@ def emit_contigs_euler_with_cov(
         )
         if closed and edges > 1:
             core = canonical_cycle(seq[: len(seq) - overlap])
+            rc_bases += len(core)
             seq = core + core[:overlap]
         else:
-            seq = canonical_str(seq)
+            seq, flipped = canonical_str_flipped(seq)
+            rc_bases += len(seq) if flipped else 0
         if len(seq) >= min_len and seq not in seen:
             seen.add(seq)
             contigs.append((seq, cov))
     contigs.sort(key=lambda sc: (-len(sc[0]), sc[0]))
+    _count_revcomp_bases(rc_bases)
     return contigs
 
 

@@ -39,7 +39,7 @@ import torch
 from ..host.dbg import counts_to_dict
 from ..host.simplify import simplify_counts
 from ..host.simplify_arrays import simplify_arrays_to_graph
-from ..host.traverse import emit_contigs, emit_contigs_euler
+from ..host.traverse import counted_into, emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
 from ..utils.metrics import Metrics
 
@@ -731,7 +731,7 @@ def assemble_from_table(
                 counts, cfg.k, cfg.resolved_tip_len,
                 cfg.resolved_bubble_len, min_count,
             )
-    with timed_stage(m, "traverse", dev, after_stage):
+    with timed_stage(m, "traverse", dev, after_stage), counted_into(m):
         contigs = (
             emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
         )

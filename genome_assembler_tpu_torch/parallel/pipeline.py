@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..host.simplify_arrays import simplify_arrays_to_graph
-from ..host.traverse import emit_contigs, emit_contigs_euler
+from ..host.traverse import counted_into, emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
 from ..utils.dna import has_ambiguous, key_words
 from ..utils.metrics import Metrics
@@ -1156,7 +1156,7 @@ def assemble_distributed_sharded(
         graph = simplify_arrays_to_graph(
             ua, cfg.resolved_tip_len, cfg.resolved_bubble_len, min_count
         )
-    with _stage(m, "traverse", mesh):
+    with _stage(m, "traverse", mesh), counted_into(m):
         contigs = (
             emit_contigs_euler(graph) if emit == "euler" else emit_contigs(graph)
         )

@@ -56,15 +56,70 @@ def encode_seq(seq: str, mask_invalid: bool = False) -> np.ndarray:
     return codes
 
 
+# Strings are built by byte-table translation (``bytes.translate``, one
+# pass at memory speed): code -> base for decoding, base -> complement for
+# reverse complements. Every byte without a meaning maps to _BAD, which a
+# ``find`` (memchr) then looks for.
+_BAD = 0
+_DECODE_TABLE = _DECODE_LUT.tobytes().ljust(256, bytes([_BAD]))
+_COMP_TABLE = bytearray(256)  # _BAD but at the eight bases
+for _b, _c in zip(b"ACGTacgt", b"TGCATGCA"):
+    _COMP_TABLE[_b] = _c  # lower case comes out upper case
+_COMP_TABLE = bytes(_COMP_TABLE)
+
+
+def _code_error(code) -> IndexError:
+    """The error a code above 4 raises (IndexError, as a LUT gather)."""
+    return IndexError(f"code {code} is above {INVALID_CODE}, no base")
+
+
 def decode_seq(codes: np.ndarray) -> str:
-    """uint8 code array -> ACGT string."""
+    """uint8 code array -> ACGT string (code 4 -> 'N'; a code above 4
+    raises IndexError)."""
     codes = np.asarray(codes, dtype=np.uint8)
-    return _DECODE_LUT[codes].tobytes().decode()
+    raw = codes.tobytes().translate(_DECODE_TABLE)
+    bad = raw.find(_BAD)
+    if bad >= 0:
+        raise _code_error(codes.ravel()[bad])
+    return raw.decode("ascii")
+
+
+def decode_seqs(buf: np.ndarray, off: np.ndarray) -> list[str]:
+    """The strings of ``buf[off[i]:off[i + 1]]`` (uint8 codes), each
+    decoded by its own byte-table pass: a slice's temporaries are reused
+    by the next, so only the strings themselves take fresh memory."""
+    buf = np.asarray(buf, dtype=np.uint8)
+    top = int(buf.max(initial=0))
+    if top > INVALID_CODE:
+        raise _code_error(top)
+    o = off.tolist()
+    return [
+        buf[lo:hi].tobytes().translate(_DECODE_TABLE).decode("ascii")
+        for lo, hi in zip(o[:-1], o[1:])
+    ]
+
+
+def _non_acgt(seq: str) -> ValueError:
+    """The error ``encode_seq`` raises, naming seq's first non-ACGT
+    character."""
+    bad = next(c for c in seq if c not in BASES + BASES.lower())
+    return ValueError(f"non-ACGT character {bad!r} in sequence")
+
+
+def _complement(seq: str) -> tuple[bytes, bytes]:
+    """seq's bytes and their complement, upper case, by one table pass;
+    a non-ACGT character raises as ``encode_seq`` does."""
+    raw = seq.encode("ascii", "replace")  # a non-ASCII character -> b"?"
+    comp = raw.translate(_COMP_TABLE)
+    if comp.find(_BAD) >= 0:
+        raise _non_acgt(seq)
+    return raw, comp
 
 
 def revcomp_str(seq: str) -> str:
-    """Reverse complement of an ACGT string."""
-    return decode_seq(3 - encode_seq(seq)[::-1])
+    """Reverse complement of an ACGT string (upper case, whatever the
+    input's case)."""
+    return _complement(seq)[1][::-1].decode("ascii")
 
 
 def revcomp_codes(codes: np.ndarray) -> np.ndarray:
@@ -74,8 +129,24 @@ def revcomp_codes(codes: np.ndarray) -> np.ndarray:
 
 def canonical_str(kmer: str) -> str:
     """Canonical form: lexicographic min of the k-mer and its revcomp."""
-    rc = revcomp_str(kmer)
-    return kmer if kmer <= rc else rc
+    return canonical_str_flipped(kmer)[0]
+
+
+def canonical_str_flipped(seq: str) -> tuple[str, bool]:
+    """(canonical form of seq, whether it is seq's reverse complement).
+
+    ``seq <= revcomp(seq)`` is decided from the two ends, the first 64
+    bases against the reverse complement of the last 64, and from the
+    whole strands only where those agree. The reversed strand is built
+    only when it is the answer.
+    """
+    raw, comp = _complement(seq)
+    head, rc_head = raw[:64], comp[-64:][::-1]
+    if head == rc_head:  # the ends agree (or seq is a palindrome)
+        head, rc_head = raw, comp[::-1]
+    if head <= rc_head:
+        return seq, False
+    return comp[::-1].decode("ascii"), True
 
 
 def least_rotation(s: str) -> str:

@@ -57,12 +57,14 @@ def test_runner_passes_and_matches_the_reference(cid, monkeypatch):
         derived = got.detail["metrics"]["derived"]
         assert derived["count_bytes_per_s"] > 0
         assert set(derived) == set(want.detail["metrics"]["derived"])
-        # the port's one counter more: the batches in which the card
-        # found an N (none in CFG-2's reads)
+        # the port's two counters more: the batches in which the card
+        # found an N (none in CFG-2's reads), and the bases of the reverse
+        # complements that emission built
         counters = got.detail["metrics"]["counters"]
         assert set(counters) == set(want.detail["metrics"]["counters"]) | {
-            "ambiguous_batches"}
+            "ambiguous_batches", "revcomp_bases"}
         assert counters["ambiguous_batches"] == 0
+        assert counters["revcomp_bases"] > 0
 
 
 def test_to_json_is_one_line_with_the_reference_keys():

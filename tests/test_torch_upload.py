@@ -339,12 +339,15 @@ def test_count_bytes_and_report_keys_equal_the_reference(reads):
     assert contigs == jax_pipeline.assemble_tpu(reads, cfg, metrics=jm,
                                                 table_capacity=CAP)
     got, want = m.report(), jm.report()
-    # the port's one counter more: the batches in which the card found an N
+    # the port's two counters more: the batches in which the card found an
+    # N, and the bases of the reverse complements that emission built
     want["counters"]["ambiguous_batches"] = 3
+    want["counters"]["revcomp_bases"] = m.counters["revcomp_bases"]
     for part in ("stages_s", "counters", "derived"):
         assert set(got[part]) == set(want[part]), part
     assert m.counters["masked_windows"] == jm.counters["masked_windows"]
     assert m.counters["ambiguous_batches"] == 3
+    assert m.counters["revcomp_bases"] > 0
     wc = 60 - K + 1
     # one 8-byte limb a key here, one 4-byte word there
     assert m.counters["count_bytes"] == reads.size + 2 * reads.shape[0] * wc * 8
