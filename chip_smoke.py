@@ -671,6 +671,7 @@ def peaks_gib(torch, mesh) -> list[float]:
 
 def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     from genome_assembler_tpu_torch.ops import count_torch
+    from genome_assembler_tpu_torch.ops.stream_table import CarriedTable
     from genome_assembler_tpu_torch.utils.keys import snug_capacity
 
     glen, k = 12_000_000, 31
@@ -689,11 +690,13 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     err = 0
     for i in sorted({0, plan.num_batches - 1}):
         # the kernel's inputs in this run: the first and the tail batch,
-        # every shard with its n_valid
-        packed, _, n_valid = dist._stream_batch(mesh, rs.codes, plan, i, False)
+        # every shard with its n_valid, its invalid bits and its flag, as
+        # the sharded count launches it
+        packed, ext, n_valid = dist._stream_batch(mesh, rs.codes, plan, i)
         for s, nv in enumerate(n_valid):
-            got = kmer.extract_canonical_flat(packed[s], 100, k, nv)
-            ref_keys = kmer.extract_canonical_flat_ref(packed[s], 100, k, nv)
+            got = kmer.extract_canonical_flat(packed[s], 100, k, nv, **ext[s])
+            ref_keys = kmer.extract_canonical_flat_ref(
+                packed[s], 100, k, nv, inv_bits=ext[s]["inv_bits"])
             torch.cuda.synchronize()
             e = max_abs_err(torch, got, ref_keys)
             check(e == 0, f"CFG-4 batch {i} shard {s}: kernel != plain "
@@ -703,7 +706,7 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
         log(f"CFG-4 kernel inputs of batch {i}/{plan.num_batches}: bit-equal "
             f"to the plain version on every shard ({plan.per_dev} reads x "
             f"100 a shard, n_valid {n_valid})")
-    del packed, got, ref_keys
+    del packed, ext, got, ref_keys
 
     m = dist.Metrics()
     reset_launches(kmer)
@@ -762,14 +765,15 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     del gathered, single
 
     # routing share of one streamed batch, at the run's shapes
-    packed, _, nv = dist._stream_batch(mesh, rs.codes, plan, 0, False)
+    packed, ext, nv = dist._stream_batch(mesh, rs.codes, plan, 0)
     owned = dist._make_owned_keys(mesh, k, 100, plan.bucket_cap, None)
-    step = dist.make_distributed_stream_count(mesh, k, plan.per_dev, 100,
-                                              plan.bucket_cap)
-    tables = [count_torch.empty_table(plan.c_shard, 1, d_)
+    step = dist.make_distributed_stream_step(mesh, k, 100, plan.bucket_cap)
+    # flat carried tables past their first merge: each step merges
+    tables = [CarriedTable(plan.c_shard, 1, d_, None,
+                           table=count_torch.empty_table(plan.c_shard, 1, d_))
               for d_ in mesh.devices]
-    route_ms = time_cuda(torch, lambda: owned(packed, nv), 5)
-    step_ms = time_cuda(torch, lambda: step(tables, packed, nv), 5)
+    route_ms = time_cuda(torch, lambda: owned(packed, nv, ext), 5)
+    step_ms = time_cuda(torch, lambda: step(tables, packed, nv, ext), 5)
     log(f"CFG-4 one streamed batch ({plan.batch_total} reads on 4 shards): "
         f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the merge "
         f"({100 * route_ms / step_ms:.1f}%)")
@@ -899,6 +903,8 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
     """CFG-2's reads through the upload ring against the plain upload."""
     import numpy as np
 
+    from genome_assembler_tpu_torch.ops import count_torch
+
     cfg = ref.AssemblyConfig(k=31, read_len=100)
     batches = -(-reads.shape[0] // cfg.batch_reads)
 
@@ -977,7 +983,8 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
 
     def device_step():
         packed, ext = pipeline.pack_batch(buf)
-        pipeline._stream_step(table, packed, length, 31, **ext)
+        count_torch.merge_raw_keys(
+            table, kmer.extract_canonical_flat(packed, length, 31, **ext))
 
     step_ms = time_cuda(torch, device_step, 5)
     log(f"one CFG-2 batch ({b_} x {length}): host fill of the pinned slot "
@@ -1404,12 +1411,13 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     device and on 4 shards; a bucketed stop and resume."""
     import numpy as np
 
+    from genome_assembler_tpu_torch.ops import stream_table
+
     reads, cfg, capacity, _ = cfg4
     merge_windows = cfg.batch_reads * (100 - cfg.k + 1)
-    check(pipeline.use_bucketed("auto", capacity + merge_windows),
+    plan, _ = stream_table.stream_layout(capacity, merge_windows, 1)
+    check(plan is not None,
           "CFG-4 on one device: auto did not pick the bucketed layout")
-    plan = pipeline.bucket_plan(capacity, merge_windows, buckets=None,
-                                accum=None)
     launches = {}
 
     def count(layout):
@@ -1440,7 +1448,7 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
           "the bucketed count did not launch the kernels once a batch")
     log("bucketed, CFG-4 on one device: " + json.dumps({
         "merge_rows": capacity + merge_windows,
-        "bound": pipeline.BUCKETED_MIN_MERGE_ROWS, "auto_picks": "on",
+        "bound": stream_table.BUCKETED_MIN_MERGE_ROWS, "auto_picks": "on",
         "nb": plan.nb, "cb": plan.cb, "m": plan.m, "accum": plan.accum,
         "unique": int(tables["on"].num_unique), "bit_equal": True,
         "count_s": secs}))
@@ -1523,6 +1531,8 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
     shards against stride 1, and a strided stop, resume and reshard."""
     import numpy as np
 
+    from genome_assembler_tpu_torch.ops import stream_table
+
     reads, cfg, capacity, _ = cfg4
     n_batches = -(-reads.shape[0] // cfg.batch_reads)
     bw = cfg.batch_reads * (100 - cfg.k + 1)
@@ -1552,7 +1562,7 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
             tally_packs(kmer, "cfg4_strided_one_device")
         r = runs.setdefault(f"{stride}/{layout}", {
             "stride": stride, "layout": layout,
-            "auto_takes": "buckets" if pipeline.use_bucketed(
+            "auto_takes": "buckets" if stream_table.use_bucketed(
                 "auto", capacity + stride * bw) else "flat",
             "merge_rows": capacity + stride * bw, "count_s": [],
             "peak_gib": peak})

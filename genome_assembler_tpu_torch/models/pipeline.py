@@ -3,8 +3,9 @@
 Counterpart of ``genome_assembler_tpu/models/pipeline.py::assemble_tpu``:
 
   2-bit-packed reads -> canonical k-mers   ops.kmer_torch (CUDA kernel)
-  count (single shot, flat streaming, or   ops.count_torch,
-    hash-bucketed streaming)               ops.bucketed_torch
+  count (single shot, or streamed into a  ops.count_torch,
+    carried table: flat, hash-bucketed or  ops.stream_table,
+    deferred merges)                       ops.bucketed_torch
   compaction + coverage filter             ops.count_torch
   unitig compression (odd k)               ops.unitig_torch
   spelling reduction                       ops.unitig_torch + host.dbg
@@ -21,17 +22,13 @@ host slots, a copy stream, two batches queued ahead of the one being
 counted, and nothing between two batches that waits for the device.
 Even k takes the reference's host-dict graph branch. The streaming
 counter can snapshot its table and batch cursor mid-stream and resume
-from such a snapshot, in the reference's format. Past
-``BUCKETED_MIN_MERGE_ROWS`` rows a merge (the reference's bound) it keeps
-its table in hash buckets and merges every ``BUCKET_ACCUM`` batches, as
-the reference does, so both packages pick one layout for one run. With a
-merge stride s (``merge_stride``) the raw keys of s batches wait on the
-device (``PendingKeys``) and merge at once, in either layout.
+from such a snapshot, in the reference's format. Its running table and
+the merge policy (flat, hash-bucketed past the reference's bound, or
+deferred under a merge stride) are ``ops.stream_table.CarriedTable``'s,
+which the sharded counter keeps one a shard.
 """
 
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,20 +44,15 @@ from ..host.dbg import spell_device_arrays
 from ..ops import count_torch
 from ..ops.bucketed_torch import (
     BucketedTable,
-    auto_buckets,
-    bucket_geometry,
     bucketed_from_numpy,
     bucketed_to_numpy,
-    empty_bucketed,
-    flatten_bucketed,
-    merge_packed_bucketed,
-    route_pack_keys,
 )
 from ..ops.count_torch import CountTable
 from ..ops.kmer_torch import extract_canonical_flat, pack_on_device
+from ..ops.stream_table import CarriedTable, stream_layout, stride_taken
 from ..ops.unitig_torch import compress_unitigs_device
 from ..utils.device import resolve_device
-from ..utils.keys import SENTINEL, limbs_to_words, n_limbs
+from ..utils.keys import limbs_to_words, n_limbs
 from ..utils.upload import UploadRing
 
 # Above this many windows the counter streams batches into a bounded
@@ -70,19 +62,6 @@ SINGLE_SHOT_WINDOWS = 1 << 27
 # Batches uploaded ahead of the one being counted (the reference's
 # prefetch depth).
 UPLOAD_PREFETCH = 2
-# The streaming merge keeps its table in hash buckets (``bucketed="auto"``)
-# once one merge passes this many rows: table capacity + one batch's
-# windows. The reference's bound (``models/pipeline.py:57``), measured on
-# its TPU's sort cliff, kept unchanged so that both packages pick the same
-# layout for the same run and their mid-stream checkpoints cross.
-BUCKETED_MIN_MERGE_ROWS = 25 * (1 << 20)
-# The bucketed merge's defaults, the reference's: batches routed into the
-# staging buffer between two table merges, and the slack of a bucket's
-# table rows (cb) and of its rows from one batch (m) over the uniform
-# expectation.
-BUCKET_ACCUM = 4
-BUCKET_CB_SLACK = 1.25
-BUCKET_M_SLACK = 1.5
 
 
 def timed_stage(m: Metrics, name: str, devices, after=None):
@@ -97,37 +76,15 @@ def _count_batch(
     read_len: int,
     k: int,
     inv_bits: torch.Tensor | None = None,
-    out_cap: int | None = None,
     flag: torch.Tensor | None = None,
     masked: torch.Tensor | None = None,
 ) -> CountTable:
-    """Extract + canonicalize + sort-count one packed read batch; out_cap
-    truncates (flagging overflow) or pads the table to that capacity.
+    """Extract + canonicalize + sort-count one packed read batch.
     ``flag`` and ``masked`` go to ``extract_canonical_flat``: the pack's
     flag of the batch, and the device counter of masked windows."""
     keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits,
                                   flag=flag, masked=masked)
-    table = count_torch.count_keys(keys)
-    if out_cap is not None:
-        table = count_torch.resize_table(table, out_cap)
-    return table
-
-
-def _stream_step(
-    table: CountTable,
-    packed: torch.Tensor,
-    read_len: int,
-    k: int,
-    inv_bits: torch.Tensor | None = None,
-    flag: torch.Tensor | None = None,
-    masked: torch.Tensor | None = None,
-) -> CountTable:
-    """Count one batch into the running table: the raw canonical key
-    stream weighted-merges straight into it (``merge_raw_keys``);
-    ``flag`` and ``masked`` as for ``_count_batch``."""
-    keys = extract_canonical_flat(packed, read_len, k, inv_bits=inv_bits,
-                                  flag=flag, masked=masked)
-    return count_torch.merge_raw_keys(table, keys)
+    return count_torch.count_keys(keys)
 
 
 def pack_batch(codes: torch.Tensor, counts: torch.Tensor | None = None):
@@ -156,151 +113,6 @@ def count_ambiguous(reads: np.ndarray, k: int, batch: int,
         codes = torch.from_numpy(reads[s : s + batch]).to(device)
         packed, ext = pack_batch(codes, counts)
         extract_canonical_flat(packed, reads.shape[1], k, **ext)
-
-
-def use_bucketed(bucketed: str, merge_rows: int) -> bool:
-    """Whether a streamed count keeps its table in hash buckets: ``"on"``,
-    ``"off"``, or ``"auto"`` (``merge_rows`` = rows of one merge, at least
-    BUCKETED_MIN_MERGE_ROWS)."""
-    if bucketed not in ("auto", "on", "off"):
-        raise ValueError(f"bucketed must be 'auto', 'on' or 'off', got "
-                         f"{bucketed!r}")
-    if bucketed == "auto":
-        return merge_rows >= BUCKETED_MIN_MERGE_ROWS
-    return bucketed == "on"
-
-
-class BucketPlan(NamedTuple):
-    """Geometry of a bucketed stream: nb buckets of cb table rows, m rows a
-    bucket from one batch, accum batches between two table merges (the
-    reference's checkpoint params of the layout, by these names)."""
-
-    nb: int
-    cb: int
-    m: int
-    accum: int
-
-
-def bucket_plan(capacity: int, merge_windows: int, *, buckets: int | None,
-                accum: int | None) -> BucketPlan:
-    """The reference's geometry for a table of ``capacity`` rows fed
-    ``merge_windows`` rows a batch: ``auto_buckets`` unless ``buckets`` is
-    given, BUCKET_ACCUM unless ``accum`` is."""
-    accum = BUCKET_ACCUM if accum is None else max(1, accum)
-    nb = buckets or auto_buckets(capacity, merge_windows, accum,
-                                 BUCKET_CB_SLACK, BUCKET_M_SLACK)
-    cb, m = bucket_geometry(capacity, merge_windows, nb=nb,
-                            cb_slack=BUCKET_CB_SLACK, m_slack=BUCKET_M_SLACK)
-    return BucketPlan(nb, cb, m, accum)
-
-
-class BucketedStream:
-    """The bucketed merge of one running table (one device, or one shard).
-
-    Each batch is only routed into its slot of a staging buffer of
-    [nb, accum * m] rows, and the staged rows merge into the table once
-    ``accum`` slots are full (the reference's accumulated staging; with
-    ``accum`` 1 every batch merges): merges aggregate associatively and a
-    key's bucket never changes, so the table equals per-batch merging.
-    Routing overflow waits in ``pending`` and folds into the table's flag
-    at the next merge."""
-
-    def __init__(self, table: BucketedTable, plan: BucketPlan):
-        self.table, self.plan, self.slot = table, plan, 0
-        nb, _, nl = table.limbs.shape
-        self.staging = table.limbs.new_full(
-            (nb, plan.accum * plan.m, nl), SENTINEL)
-        self.pending = torch.zeros((), dtype=torch.bool,
-                                   device=table.limbs.device)
-
-    @property
-    def at_boundary(self) -> bool:
-        """No routed batch waits for its merge (a snapshot may be taken)."""
-        return self.slot == 0
-
-    def add(self, keys: torch.Tensor, route_overflow=None) -> None:
-        """One batch's raw keys (sentinel rows ignored); ``route_overflow``
-        a flag of the step that produced them."""
-        p = self.plan
-        packed, over_m = route_pack_keys(keys, p.nb, p.m)
-        self.staging[:, self.slot * p.m : (self.slot + 1) * p.m] = packed
-        self.pending = self.pending | over_m
-        if route_overflow is not None:
-            self.pending = self.pending | route_overflow
-        self.slot += 1
-        if self.slot == p.accum:
-            self.flush()
-
-    def flush(self) -> None:
-        """Merge the filled staging slots into the table."""
-        if self.slot:
-            self.table = merge_packed_bucketed(
-                self.table, self.staging[:, : self.slot * self.plan.m],
-                self.pending)
-            self.pending = torch.zeros_like(self.pending)
-            self.slot = 0
-
-    def finish(self, capacity: int) -> CountTable:
-        """Flush the tail, then the flat compact-front table of
-        ``capacity`` rows."""
-        self.flush()
-        return flatten_bucketed(self.table, capacity)
-
-
-class PendingKeys:
-    """Deferred merges (the reference's merge stride): the raw keys of up
-    to ``stride`` batches wait in one device buffer of ``rows`` rows, and
-    the table merges them all at once, so its capacity-sized sort runs
-    once per ``stride`` batches. Batch after batch lands behind the last
-    one (a short batch leaves no gap), and a merge takes only the filled
-    rows, so no key of an earlier round is merged twice. Merges aggregate
-    associatively and ignore sentinel rows: the table equals merging
-    every batch. ``overflow`` gathers the routing flags of the waiting
-    batches (the sharded stream's) until they merge."""
-
-    def __init__(self, stride: int, rows: int, nl: int,
-                 device: torch.device):
-        self.stride, self.slot, self.fill = stride, 0, 0
-        self.buf = torch.empty((rows, nl), dtype=torch.int64, device=device)
-        self.overflow = torch.zeros((), dtype=torch.bool, device=device)
-
-    @property
-    def at_boundary(self) -> bool:
-        """No batch waits for its merge (a snapshot may be taken)."""
-        return self.slot == 0
-
-    def add(self, keys: torch.Tensor, route_overflow=None) -> bool:
-        """Append one batch's raw keys; True once ``stride`` batches wait."""
-        n = keys.shape[0]
-        self.buf[self.fill : self.fill + n] = keys
-        self.fill += n
-        self.slot += 1
-        if route_overflow is not None:
-            self.overflow = self.overflow | route_overflow
-        return self.slot == self.stride
-
-    def merge(self, table: CountTable | None,
-              stream: "BucketedStream | None") -> CountTable | None:
-        """Merge the waiting keys, with their routing flag, into
-        ``stream`` (in place; its plan merges once an ``add``) or else
-        into the flat ``table``; returns the flat table (``table`` as it
-        was under a stream). The buffer is empty after it."""
-        keys, over = self.buf[: self.fill], self.overflow
-        self.slot = self.fill = 0
-        self.overflow = torch.zeros_like(over)
-        if stream is not None:
-            stream.add(keys, over)
-            return table
-        merged = count_torch.merge_raw_keys(table, keys)
-        return merged._replace(overflow=merged.overflow | over)
-
-
-def stride_taken(merge_stride: int | None, n_batches: int) -> int:
-    """The stride a stream of ``n_batches`` batches runs at: the
-    reference's rule, deferred merges only with ``merge_stride`` > 1 and
-    more than one batch (else 1; None or 0 is 1, as there)."""
-    stride = merge_stride or 1
-    return stride if stride > 1 and n_batches > 1 else 1
 
 
 def save_stream_checkpoint(
@@ -439,8 +251,10 @@ def count_reads_device(
     it, read sets up to SINGLE_SHOT_WINDOWS windows count in one shot
     (capacity = window count); larger ones stream with capacity
     SINGLE_SHOT_WINDOWS. Streaming uploads ``cfg.batch_reads`` reads per
-    batch; the first batch counts straight into a table padded to the
-    capacity, every later one merges its raw keys into it. The kernel
+    batch and adds each batch's raw keys to one ``CarriedTable``
+    (``ops/stream_table.py``, the one module that holds the merge policy:
+    the first flat merge counts straight into a table padded to the
+    capacity, every later one merges into it). The kernel
     takes any batch size, so the short last batch is not padded. On a
     card the batches go through an ``UploadRing`` (``UPLOAD_PREFETCH``
     batches ahead); on the CPU, or with ``_plain_upload`` (the on-card
@@ -450,7 +264,7 @@ def count_reads_device(
     capacity + one batch's windows reach BUCKETED_MIN_MERGE_ROWS), ``"on"``
     or ``"off"``; the result is the same table either way. In the bucketed
     layout each batch is routed to its buckets and the routed batches
-    merge every BUCKET_ACCUM batches (``BucketedStream``); ``_buckets`` and
+    merge every BUCKET_ACCUM batches; ``_buckets`` and
     ``_bucket_accum`` set the bucket count and that cadence (for tests).
 
     ambiguous_counts: an int64 [2] tensor on ``device`` that gains, on the
@@ -461,9 +275,8 @@ def count_reads_device(
     scans the reads.
 
     merge_stride: deferred merges. With a stride s > 1 and more than one
-    batch, each batch's raw keys only wait in a ``PendingKeys`` buffer,
-    and the table merges s batches at once (from an empty table; the
-    tail merges what waits). The layout rule then counts s batches'
+    batch, each batch's raw keys only wait in a device buffer, and the
+    table merges s batches at once (the tail merges what waits). The layout rule then counts s batches'
     windows, and the bucketed layout merges once per s batches
     (accumulation 1). The table is the same at any stride. ``metrics``
     (if given) counts the stride a streamed count took as
@@ -511,18 +324,13 @@ def count_reads_device(
         if merge_stride is not None:
             m.count("merge_stride", stride)
         merge_windows = stride * bw
+        plan, layout = stream_layout(capacity, merge_windows, stride,
+                                     bucketed, _buckets, _bucket_accum)
         # everything the carried table depends on: the reference's keys
         ck_params = {
             "k": cfg.k, "batch": batch, "capacity": capacity,
-            "stride": stride, "total_reads": b,
-            "bucketed": int(use_bucketed(bucketed, capacity + merge_windows)),
+            "stride": stride, "total_reads": b, **layout,
         }
-        plan = None
-        if ck_params["bucketed"]:
-            # under a stride the pending rows merge at once (accumulation 1)
-            plan = bucket_plan(capacity, merge_windows, buckets=_buckets,
-                               accum=1 if stride > 1 else _bucket_accum)
-            ck_params.update(plan._asdict())
         table = None
         start_idx = 0
         if resume_stream_from is not None:
@@ -539,20 +347,8 @@ def count_reads_device(
             if ambiguous_counts is not None:
                 count_ambiguous(reads[:next_start], cfg.k, batch, device,
                                 ambiguous_counts)
-        stream = None
-        if plan is not None:
-            stream = BucketedStream(
-                table if table is not None else empty_bucketed(
-                    plan.nb, plan.cb, n_limbs(cfg.k), device),
-                plan,
-            )
-        pending = None
-        if stride > 1:
-            pending = PendingKeys(stride, min(merge_windows, total_windows),
-                                  n_limbs(cfg.k), device)
-            if table is None and stream is None:
-                table = count_torch.empty_table(capacity, n_limbs(cfg.k),
-                                                device)
+        carried = CarriedTable(capacity, n_limbs(cfg.k), device, plan, stride,
+                               min(merge_windows, total_windows), table)
         ring = UploadRing(
             [(device, min(batch, b))], [length], depth=UPLOAD_PREFETCH,
             pipelined=False if _plain_upload else None, metrics=m,
@@ -560,8 +356,8 @@ def count_reads_device(
 
     def save(next_batch):
         save_stream_checkpoint(
-            table if stream is None else stream.table, stream_checkpoint,
-            cfg.k, next_start=starts[next_batch], params=ck_params,
+            carried.snapshot, stream_checkpoint, cfg.k,
+            next_start=starts[next_batch], params=ck_params,
         )
 
     def fill(i, planes):
@@ -579,29 +375,12 @@ def count_reads_device(
         for i, [[codes]] in ring.stream(start_idx, len(starts), fill):
             with m.span("count.step"):
                 packed, ext = pack_batch(codes, ambiguous_counts)
-                if pending is not None:
-                    if pending.add(extract_canonical_flat(
-                            packed, length, cfg.k, **ext)):
-                        table = pending.merge(table, stream)
-                elif stream is not None:
-                    stream.add(extract_canonical_flat(packed, length, cfg.k,
-                                                      **ext))
-                elif table is None:
-                    table = _count_batch(packed, length, cfg.k,
-                                         out_cap=capacity, **ext)
-                else:
-                    table = _stream_step(table, packed, length, cfg.k, **ext)
+                carried.add(extract_canonical_flat(packed, length, cfg.k,
+                                                   **ext))
             # the table after batch i, whatever is already uploaded
-            cursor.after(i, (pending is None or pending.at_boundary)
-                         and (stream is None or stream.at_boundary))
+            cursor.after(i, carried.at_boundary)
     with m.span("count.finish"):
-        if pending is not None and not pending.at_boundary:
-            table = pending.merge(table, stream)
-        if stream is not None:
-            return stream.finish(capacity)
-        if table is None:  # no reads at all
-            table = count_torch.empty_table(capacity, n_limbs(cfg.k), device)
-        return table
+        return carried.finish()
 
 
 def table_to_host_counts(table: CountTable, k: int) -> dict[str, int]:

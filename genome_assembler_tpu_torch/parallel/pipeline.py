@@ -3,21 +3,21 @@
 Counterpart of ``genome_assembler_tpu/parallel/pipeline.py``. Per shard
 and read batch:
 
-  1. extract + canonicalize the shard's packed reads (the CUDA kernel on
-     the card, ``ops.kmer_torch.extract_canonical_flat``);
+  1. pack the shard's reads on its device and extract + canonicalize
+     them (the CUDA kernels on the card, ``ops.kmer_torch``); the pack's
+     flag tells the extraction whether the batch holds an ambiguous base,
+     so the host never scans the reads for one;
   2. route each key to its owner ``mix_words(key) % D``
      (``ops.hash_torch``), or each minimizer super-k-mer record to its
      minimizer's owner (``ops.superkmer_torch``);
   3. pack the rows into a fixed [D, bucket_cap, ...] send buffer
      (``bucket_pack``; overflow is flagged, never silent) and exchange the
      buffers (``mesh.all_to_all``);
-  4. sort/segment-reduce the received keys into the shard's table, or,
-     once a shard's merge passes the reference's bound
-     (``models.pipeline.use_bucketed``), route them into the shard's
-     hash-bucketed table (``models.pipeline.BucketedStream``), which
-     flattens back to the flat table at the stream's end. Under a merge
-     stride s the received keys of s batches wait in the shard's
-     ``models.pipeline.PendingKeys`` and merge at once, shard by shard.
+  4. sort/segment-reduce the received keys into the shard's table: in
+     one step, or, streamed, added to the shard's
+     ``ops.stream_table.CarriedTable``, the one module that holds the
+     merge policy (flat, hash-bucketed past the reference's bound, or
+     deferred under a merge stride), the single device's too.
 
 Every per-shard list holds the LOCAL shards of the mesh (all D in one
 process; a rank's own under a process group, global shard
@@ -42,22 +42,18 @@ import torch
 from ..host.simplify_arrays import simplify_arrays_to_graph
 from ..host.traverse import counted_into, emit_contigs, emit_contigs_euler
 from ..utils.config import AssemblyConfig
-from ..utils.dna import has_ambiguous, key_words
+from ..utils.dna import key_words
 from ..utils.metrics import Metrics
 
 from ..models.pipeline import (
-    BucketedStream,
-    PendingKeys,
     StreamCursor,
     assemble_from_table,
     auto_min_count_hist,
-    bucket_plan,
     checkpoint_kind,
     load_table,
+    pack_batch,
     require_checkpoint_kind,
-    stride_taken,
     timed_stage,
-    use_bucketed,
 )
 from ..ops import count_torch
 from ..ops.bucketed_torch import (
@@ -65,16 +61,15 @@ from ..ops.bucketed_torch import (
     bucketed_from_numpy,
     bucketed_to_numpy,
     bucketize,
-    empty_bucketed,
 )
 from ..ops.count_torch import CountTable, compact_front_sorted
 from ..ops.hash_torch import mix_words, owner_of
 from ..ops.kmer_torch import (
     extract_canonical_flat,
-    pack_on_device,
     unpack_codes,
     unpack_invalid_mask,
 )
+from ..ops.stream_table import CarriedTable, stream_layout, stride_taken
 from ..ops.superkmer_torch import (
     RUN_CAP,
     extract_from_records,
@@ -123,21 +118,23 @@ def _make_owned_keys(
     minimizer_len: int | None,
 ):
     """The shared front half of the one-shot and streamed counters:
-    per-shard packed reads -> (per-shard received raw keys, sentinel =
+    fn(packed, n_valid, ext), per-shard packed reads, valid rows and
+    ``pack_batch``'s keywords of ``extract_canonical_flat`` (the invalid
+    bits and the pack's flag) -> (per-shard received raw keys, sentinel =
     empty lane; per-shard routing-overflow flags)."""
     d = axis_size(mesh)
     wc = read_len - k + 1
 
-    def owned_keys_minimizer(packed, n_valid, inv):
+    def owned_keys_minimizer(packed, n_valid, ext):
         sw = span_words(k)
         sends, ovfs = [], []
         for i in range(mesh.local_size):
             codes = unpack_codes(packed[i], read_len)
             b = codes.shape[0]
             row_ok = torch.arange(b, device=codes.device) < n_valid[i]
-            wv = row_ok[:, None].expand(b, wc)
-            if inv is not None:
-                wv = wv & ~_window_bad(unpack_invalid_mask(inv[i], read_len), k)
+            # the pack's bits: zeros where the batch holds no N
+            bad = unpack_invalid_mask(ext[i]["inv_bits"], read_len)
+            wv = row_ok[:, None] & ~_window_bad(bad, k)
             hmin, mpos = window_minimizers(codes, k, minimizer_len)
             brk, run, sub, _ = superkmer_records(codes, k, hmin, mpos, wv)
             n = b * wc
@@ -159,15 +156,13 @@ def _make_owned_keys(
             keys.append(kk)
         return keys, ovfs
 
-    def owned_keys(packed, n_valid, inv=None):
+    def owned_keys(packed, n_valid, ext):
         if minimizer_len is not None:
-            return owned_keys_minimizer(packed, n_valid, inv)
+            return owned_keys_minimizer(packed, n_valid, ext)
         sends, ovfs = [], []
         for i in range(mesh.local_size):
-            kk = extract_canonical_flat(
-                packed[i], read_len, k, n_valid[i],
-                None if inv is None else inv[i],
-            )
+            kk = extract_canonical_flat(packed[i], read_len, k, n_valid[i],
+                                        **ext[i])
             if d == 1:
                 # single-owner mesh: every key is already home, no routing
                 return [kk], [torch.zeros((), dtype=torch.bool,
@@ -190,14 +185,15 @@ def make_distributed_count(
     """The one-shot counting step.
 
     Returns fn(packed [per-shard [B, ceil(L/4)] uint8], n_valid [per-shard
-    int][, inv]) -> (per-shard CountTable, 0-d bool overflow on shard 0's
-    device). Under minimizer routing each shard's table is truncated to a
-    window-scale capacity (overflow flagged), as in the reference.
+    int], ext [per-shard ``pack_batch`` keywords]) -> (per-shard
+    CountTable, 0-d bool overflow on shard 0's device). Under minimizer
+    routing each shard's table is truncated to a window-scale capacity
+    (overflow flagged), as in the reference.
     """
     owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
 
-    def step(packed, n_valid, inv=None):
-        keys, route_ovf = owned(packed, n_valid, inv)
+    def step(packed, n_valid, ext):
+        keys, route_ovf = owned(packed, n_valid, ext)
         tables = []
         for kk in keys:
             table = count_torch.count_keys(kk)
@@ -217,60 +213,22 @@ def make_distributed_count(
     return step
 
 
-def make_distributed_stream_count(
-    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
-    bucket_cap: int, minimizer_len: int | None = None,
+def make_distributed_stream_step(
+    mesh: Mesh, k: int, read_len: int, bucket_cap: int,
+    minimizer_len: int | None = None,
 ):
-    """Streamed variant: fn(tables, packed, n_valid[, inv]) -> tables, each
-    shard's received raw keys weighted-merged into its carried table
-    (``count_torch.merge_raw_keys``). A table's overflow flag also
-    accumulates routing overflow; check it after the last batch."""
+    """The streamed counting step: fn(carried, packed, n_valid, ext)
+    routes one batch's keys to their owners, and each shard adds the keys
+    it received, with its routing-overflow flag, to its ``CarriedTable``
+    (one a local shard), which merges them at its layout's cadence. A
+    table's overflow flag also gathers routing overflow; check it after
+    the last batch."""
     owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
 
-    def step(tables, packed, n_valid, inv=None):
-        keys, route_ovf = owned(packed, n_valid, inv)
-        out = []
-        for table, kk, ro in zip(tables, keys, route_ovf):
-            merged = count_torch.merge_raw_keys(table, kk)
-            out.append(merged._replace(overflow=merged.overflow | ro))
-        return out
-
-    return step
-
-
-def make_distributed_stream_count_bucketed(
-    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
-    bucket_cap: int, minimizer_len: int | None = None,
-):
-    """Bucketed variant: fn(streams, packed, n_valid[, inv]) routes each
-    shard's received raw keys into its ``BucketedStream`` (one a local
-    shard), which merges them into the shard's hash-bucketed table at its
-    cadence; routing overflow folds into the table's flag."""
-    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
-
-    def step(streams, packed, n_valid, inv=None):
-        keys, route_ovf = owned(packed, n_valid, inv)
-        for stream, kk, ro in zip(streams, keys, route_ovf):
-            stream.add(kk, ro)
-
-    return step
-
-
-def make_distributed_stream_append(
-    mesh: Mesh, k: int, batch_per_device: int, read_len: int,
-    bucket_cap: int, minimizer_len: int | None = None,
-):
-    """Deferred-merge variant: fn(pendings, packed, n_valid[, inv]) only
-    appends each shard's received raw keys, with its routing flag, to the
-    shard's ``PendingKeys``; True once the stride's batches wait (on
-    every shard at once). The caller then merges each shard's pending
-    keys into its table (``PendingKeys.merge``)."""
-    owned = _make_owned_keys(mesh, k, read_len, bucket_cap, minimizer_len)
-
-    def step(pendings, packed, n_valid, inv=None):
-        keys, route_ovf = owned(packed, n_valid, inv)
-        return all([p.add(kk, ro)
-                    for p, kk, ro in zip(pendings, keys, route_ovf)])
+    def step(carried, packed, n_valid, ext):
+        keys, route_ovf = owned(packed, n_valid, ext)
+        for table, kk, ro in zip(carried, keys, route_ovf):
+            table.add(kk, ro)
 
     return step
 
@@ -316,12 +274,11 @@ class _StreamPlan:
     """Every shape decision of one streamed run, from (read-set shape, cfg,
     mesh size, knobs): the reference's plan. ``stride`` is the merge
     stride taken (``stride_taken``: 1 unless ``merge_stride`` > 1 and
-    there is more than one batch). A shard's table takes the bucketed
-    layout by the single device's rule (``use_bucketed``) on one shard's
-    merge rows, c_shard + stride x the received rows of a batch, and then
-    the reference's geometry on those rows (``buckets``: a ``BucketPlan``,
-    accumulation 1 under a stride; else None). The resharder rebuilds the
-    plan a resumed run will compute, and ``ck_params`` (equal to the
+    there is more than one batch). A shard's table takes its layout by
+    the single device's rule (``stream_layout``) on c_shard rows fed
+    stride x the received rows of a batch a merge (``buckets``: a
+    ``BucketPlan``, or None for the flat layout). The resharder rebuilds
+    the plan a resumed run will compute, and ``ck_params`` (equal to the
     reference's for the same run) pins it into every mid-stream
     checkpoint."""
 
@@ -343,12 +300,9 @@ class _StreamPlan:
         self.recv = _recv_rows(d, cfg.k, length, self.per_dev,
                                self.bucket_cap, minimizer_len)
         self.stride = stride_taken(merge_stride, self.num_batches)
-        merge_rows = self.stride * self.recv
-        self.buckets = None
-        if use_bucketed(bucketed, self.c_shard + merge_rows):
-            self.buckets = bucket_plan(
-                self.c_shard, merge_rows, buckets=buckets,
-                accum=1 if self.stride > 1 else accum)
+        self.buckets, layout = stream_layout(
+            self.c_shard, self.stride * self.recv, self.stride, bucketed,
+            buckets, accum)
         self.ck_params = {
             "d": d,
             "k": cfg.k,
@@ -357,13 +311,11 @@ class _StreamPlan:
             "stride": self.stride,
             "total_reads": b,
             "bucket_cap": self.bucket_cap,
-            "bucketed": int(self.buckets is not None),
+            **layout,
             # a key's owner depends on the routing (its hash, or its
             # minimizer's): resuming under another would split keys
             "minimizer": 0 if minimizer_len is None else minimizer_len,
         }
-        if self.buckets is not None:
-            self.ck_params.update(self.buckets._asdict())
 
 
 def _tables_to_host(mesh: Mesh | None, tables, k: int):
@@ -580,27 +532,26 @@ def reshard_sharded_stream_checkpoint(
     )
 
 
-def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int,
-                 any_invalid):
+def _pack_shards(mesh: Mesh, blocks: list[torch.Tensor], per_dev: int):
     """Raw code rows on the local shards' devices (one [local*per_dev, L]
     block on a single-device mesh, else one [per_dev, L] block a shard) ->
-    (packed per shard, invalid bits per shard or None). A single-device
-    mesh packs once and hands out contiguous row views."""
-    planes = [pack_on_device(codes)[:2] for codes in blocks]
+    (packed per shard, ``pack_batch``'s extraction keywords per shard: the
+    invalid bits and the pack's flag). A single-device mesh packs once and
+    hands out contiguous row views, each with its block's flag."""
+    packs = [pack_batch(codes) for codes in blocks]
     if mesh.single_device:
-        planes = [
-            tuple(x[i * per_dev : (i + 1) * per_dev] for x in planes[0])
-            for i in range(mesh.local_size)
-        ]
-    packed, inv = (list(col) for col in zip(*planes))
-    return packed, inv if any_invalid else None
+        packed, ext = packs[0]
+        packs = [(packed[r : r + per_dev],
+                  dict(ext, inv_bits=ext["inv_bits"][r : r + per_dev]))
+                 for r in range(0, mesh.local_size * per_dev, per_dev)]
+    return [p for p, _ in packs], [e for _, e in packs]
 
 
-def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
+def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int,
                    metrics: Metrics | None):
     """One plain upload of this process's rows of [D*per_dev, L] host
-    reads, packed on the local shards' devices: (packed per shard, invalid
-    bits per shard or None)."""
+    reads, packed on the local shards' devices: ``_pack_shards``'s
+    (packed, ext)."""
     rows = rows[mesh.first_shard * per_dev :
                 (mesh.first_shard + mesh.local_size) * per_dev]
     if metrics is not None:
@@ -611,22 +562,26 @@ def _upload_shards(mesh: Mesh, rows: np.ndarray, per_dev: int, any_invalid,
     else:
         blocks = [host[i * per_dev : (i + 1) * per_dev].to(dev)
                   for i, dev in enumerate(mesh.devices)]
-    return _pack_shards(mesh, blocks, per_dev, any_invalid)
+    return _pack_shards(mesh, blocks, per_dev)
 
 
 def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
-                    first: int, any_invalid, metrics: Metrics | None = None,
+                    first: int, metrics: Metrics | None = None,
                     *, pipelined: bool | None = None):
     """Batches ``first..`` of a streamed run on the local shards, uploaded
     ``DIST_UPLOAD_PREFETCH`` ahead through an ``UploadRing`` with one copy
     stream a distinct device (a single-device mesh gets one upload that
-    feeds all its shards): yields (i, packed per shard, invalid bits per
-    shard or None, n_valid per shard). A process fills and uploads only
-    the rows of its own shards. Only the short tail batch is padded;
-    n_valid masks the padding. ``h2d_bytes_reads`` counts the bytes this
-    process sent."""
+    feeds all its shards): yields (i, packed per shard, extraction
+    keywords per shard, n_valid per shard), ``_pack_shards``'s. A process
+    fills and uploads only the rows of its own shards. Only the short tail
+    batch is padded; n_valid masks the padding. ``h2d_bytes_reads`` counts
+    the bytes this process sent into ``metrics``; a falsy ``metrics`` is
+    taken on purpose as None, a throwaway Metrics, because
+    ``benchmark/tests/test_bench_sharded.py`` still passes ``False`` (this
+    slot's former ``any_invalid``) positionally."""
     b, length = reads.shape
     local_rows = plan.per_dev * mesh.local_size
+    metrics = metrics or Metrics()
 
     def fill(i, planes):
         start = i * plan.batch_total + mesh.first_shard * plan.per_dev
@@ -643,37 +598,25 @@ def _stream_batches(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan,
                       pipelined=pipelined, metrics=metrics)
     with ring:
         for i, blocks in ring.stream(first, plan.num_batches, fill):
-            if metrics is not None:
-                metrics.count("h2d_bytes_reads", local_rows * length)
-            packed, inv = _pack_shards(mesh, [blk[0] for blk in blocks],
-                                       plan.per_dev, any_invalid)
+            metrics.count("h2d_bytes_reads", local_rows * length)
+            packed, ext = _pack_shards(mesh, [blk[0] for blk in blocks],
+                                       plan.per_dev)
             start = i * plan.batch_total
             n_valid = [
                 int(min(max(b - start - plan.per_dev * s, 0), plan.per_dev))
                 for s in mesh.local_shards
             ]
-            yield i, packed, inv, n_valid
+            yield i, packed, ext, n_valid
 
 
-def _stream_batch(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan, i: int,
-                  any_invalid):
+def _stream_batch(mesh: Mesh, reads: np.ndarray, plan: _StreamPlan, i: int):
     """Batch ``i`` alone, by a plain upload (for probes and checks):
-    (packed per shard, invalid bits per shard or None, n_valid)."""
-    batches = _stream_batches(mesh, reads, plan, i, any_invalid,
-                              pipelined=False)
+    (packed per shard, extraction keywords per shard, n_valid)."""
+    batches = _stream_batches(mesh, reads, plan, i, pipelined=False)
     try:
         return next(batches)[1:]
     finally:
         batches.close()
-
-
-def _scan_ambiguous(reads: np.ndarray, metrics: Metrics | None) -> bool:
-    """``has_ambiguous`` over the whole host read array, under the span
-    ``shard.scan`` where there are metrics."""
-    if metrics is None:
-        return has_ambiguous(reads)
-    with metrics.span("shard.scan"):
-        return has_ambiguous(reads)
 
 
 def _run_distributed_stream(
@@ -686,20 +629,16 @@ def _run_distributed_stream(
     _buckets: int | None = None, _bucket_accum: int | None = None,
 ) -> list[CountTable]:
     """Stream batches of ``cfg.batch_reads`` global reads through
-    :func:`make_distributed_stream_count` (or, where the plan is bucketed,
-    :func:`make_distributed_stream_count_bucketed`; under a merge stride,
-    :func:`make_distributed_stream_append`) into carried per-shard
-    tables.
+    :func:`make_distributed_stream_step` into carried per-shard tables
+    (``ops.stream_table.CarriedTable``, one a local shard).
 
     table_capacity bounds the GLOBAL unique k-mers; each shard gets
     capacity/D with hash-skew slack on the snug grid. Routing and table
     overflow accumulate on the device and raise after the last batch.
-    bucketed / _buckets / _bucket_accum: the shard tables' layout, as in
-    ``models.pipeline.count_reads_device``; a bucketed shard table flattens
-    to the flat one at the end, so the result is the same either way.
-    merge_stride: deferred merges, as in ``count_reads_device``: each
-    shard's received keys wait in its own ``PendingKeys`` buffer, and every
-    shard merges them locally once per stride batches (and the tail).
+    bucketed / _buckets / _bucket_accum / merge_stride: the shard tables'
+    layout and merge cadence, by the single device's rule
+    (``models.pipeline.count_reads_device``); the result is the same table
+    either way.
 
     stream_checkpoint + stream_checkpoint_every=N snapshot the shard
     tables and the batch cursor once N batches have passed (in the
@@ -716,19 +655,12 @@ def _run_distributed_stream(
                        merge_stride)
     if metrics is not None and merge_stride is not None:
         metrics.count("merge_stride", plan.stride)
-    any_invalid = _scan_ambiguous(reads, metrics)
     a2a_step = _a2a_count_bytes_per_step(d, cfg.k, plan.bucket_cap,
                                          minimizer_len)
-    if plan.stride > 1:
-        make_step = make_distributed_stream_append
-    elif plan.buckets is None:
-        make_step = make_distributed_stream_count
-    else:
-        make_step = make_distributed_stream_count_bucketed
-    step = make_step(
-        mesh, cfg.k, plan.per_dev, length, plan.bucket_cap, minimizer_len
-    )
+    step = make_distributed_stream_step(mesh, cfg.k, length, plan.bucket_cap,
+                                        minimizer_len)
     start_batch = 0
+    tables = [None] * mesh.local_size
     if resume_stream_from is not None:
         arrays, start_batch, got = load_sharded_stream_checkpoint(
             resume_stream_from
@@ -740,32 +672,16 @@ def _run_distributed_stream(
                 "size/k/batching/capacity/routing/layout/read set"
             )
         tables = _tables_from_arrays(arrays, mesh, plan.c_shard)
-    elif plan.buckets is None:
-        tables = [
-            count_torch.empty_table(plan.c_shard, n_limbs(cfg.k), dev)
-            for dev in mesh.devices
-        ]
-    else:
-        bp = plan.buckets
-        tables = [empty_bucketed(bp.nb, bp.cb, n_limbs(cfg.k), dev)
-                  for dev in mesh.devices]
-    streams = (None if plan.buckets is None
-               else [BucketedStream(t, plan.buckets) for t in tables])
-    pendings = None
-    if plan.stride > 1:
-        pendings = [PendingKeys(plan.stride, plan.stride * plan.recv,
-                                n_limbs(cfg.k), dev) for dev in mesh.devices]
-
-    def merge_pending():
-        for s_ in range(len(tables)):
-            tables[s_] = pendings[s_].merge(
-                tables[s_], None if streams is None else streams[s_])
+    carried = [
+        CarriedTable(plan.c_shard, n_limbs(cfg.k), dev, plan.buckets,
+                     plan.stride, plan.stride * plan.recv, table)
+        for dev, table in zip(mesh.devices, tables)
+    ]
 
     def save(next_batch):
         save_sharded_stream_checkpoint(
-            tables if streams is None else [st.table for st in streams],
-            stream_checkpoint, cfg.k, next_batch=next_batch,
-            params=plan.ck_params, mesh=mesh,
+            [c.snapshot for c in carried], stream_checkpoint, cfg.k,
+            next_batch=next_batch, params=plan.ck_params, mesh=mesh,
         )
 
     cursor = StreamCursor(
@@ -773,24 +689,14 @@ def _run_distributed_stream(
         save=None if stream_checkpoint is None else save,
         abort_after_batch=abort_after_batch,
     )
-    for i, packed, inv, n_valid in _stream_batches(
-        mesh, reads, plan, start_batch, any_invalid, metrics
+    for i, packed, ext, n_valid in _stream_batches(
+        mesh, reads, plan, start_batch, metrics
     ):
-        if pendings is not None:
-            if step(pendings, packed, n_valid, inv):
-                merge_pending()
-        elif streams is None:
-            tables = step(tables, packed, n_valid, inv)
-        else:
-            step(streams, packed, n_valid, inv)
+        step(carried, packed, n_valid, ext)
         if metrics is not None:
             metrics.count("a2a_bytes_count", a2a_step)
-        cursor.after(i, (pendings is None or pendings[0].at_boundary)
-                     and (streams is None or streams[0].at_boundary))
-    if pendings is not None and not pendings[0].at_boundary:
-        merge_pending()
-    if streams is not None:
-        tables = [st.finish(plan.c_shard) for st in streams]
+        cursor.after(i, all(c.at_boundary for c in carried))
+    tables = [c.finish() for c in carried]
     if bool(any_reduce(mesh, [t.overflow for t in tables])):
         raise RuntimeError(
             "distributed streaming overflow (routing bucket or table "
@@ -841,14 +747,13 @@ def _run_distributed_step(
     step = make_distributed_count(
         mesh, cfg.k, per_dev, length, bucket_cap, minimizer_len
     )
-    packed, inv = _upload_shards(mesh, reads, per_dev,
-                                 _scan_ambiguous(reads, metrics), metrics)
+    packed, ext = _upload_shards(mesh, reads, per_dev, metrics)
     if metrics is not None:
         metrics.count(
             "a2a_bytes_count",
             _a2a_count_bytes_per_step(d, cfg.k, bucket_cap, minimizer_len),
         )
-    tables, overflow = step(packed, n_valid, inv)
+    tables, overflow = step(packed, n_valid, ext)
     if bool(overflow):
         raise RuntimeError(
             "bucket overflow during all-to-all routing; increase bucket_cap"

@@ -27,7 +27,7 @@ from genome_assembler_tpu.utils.dna import key_words
 from genome_assembler_tpu.utils.simulate import simulate_genome, simulate_reads
 from genome_assembler_tpu_torch.models import pipeline
 from genome_assembler_tpu_torch.ops import bucketed_torch as tb
-from genome_assembler_tpu_torch.ops import count_torch
+from genome_assembler_tpu_torch.ops import count_torch, stream_table
 from genome_assembler_tpu_torch.parallel import pipeline as pp
 from genome_assembler_tpu_torch.parallel.mesh import build_mesh
 from genome_assembler_tpu_torch.utils.keys import limbs_to_words, words_to_limbs
@@ -188,7 +188,7 @@ def test_geometry_rules_equal_jax():
                 ) == jb.bucket_geometry(cap, mw, nb=nb, cb_slack=1.25,
                                         m_slack=1.5)
     assert tb.BUCKET_TARGET_SEG == jb.BUCKET_TARGET_SEG
-    assert pipeline.BUCKETED_MIN_MERGE_ROWS == 25 * (1 << 20)
+    assert stream_table.BUCKETED_MIN_MERGE_ROWS == 25 * (1 << 20)
 
 
 # ---- the streamed count ----
@@ -242,7 +242,7 @@ def test_auto_layout_follows_the_bound(reads, monkeypatch, tmp_path):
     default accumulation and bucket count are the reference's."""
     ck = str(tmp_path / "mid.npz")
     for bound, want in ((1, 1), (1 << 40, 0)):
-        monkeypatch.setattr(pipeline, "BUCKETED_MIN_MERGE_ROWS", bound)
+        monkeypatch.setattr(stream_table, "BUCKETED_MIN_MERGE_ROWS", bound)
         with pytest.raises(RuntimeError, match="fault injection"):
             _port_count(reads, stream_checkpoint=ck,
                         stream_checkpoint_every=1, abort_after_batch=4)
@@ -250,9 +250,9 @@ def test_auto_layout_follows_the_bound(reads, monkeypatch, tmp_path):
         assert params["bucketed"] == want
         if want:
             assert params["accum"] == 4 and params["nb"] == 256
-    assert pipeline.use_bucketed("auto", 25 << 20) is False
+    assert stream_table.use_bucketed("auto", 25 << 20) is False
     with pytest.raises(ValueError, match="bucketed"):
-        pipeline.use_bucketed("1", 0)
+        stream_table.use_bucketed("1", 0)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from genome_assembler_tpu.utils.simulate import simulate_genome, simulate_reads
 from genome_assembler_tpu_torch import cli
 from genome_assembler_tpu_torch.models import pipeline
 from genome_assembler_tpu_torch.models.oracle import assemble_oracle
+from genome_assembler_tpu_torch.ops import stream_table
 from genome_assembler_tpu_torch.parallel import pipeline as pp
 from genome_assembler_tpu_torch.parallel.launch import spawn
 from genome_assembler_tpu_torch.parallel.mesh import build_mesh
@@ -120,9 +121,10 @@ def test_one_device_equals_jax(all_reads, monkeypatch, n_reads, stride,
 def test_stride_plan_is_the_references():
     """Deferred merges only with a stride above 1 and more than one batch;
     None and 0 mean 1, as in the reference."""
-    assert pipeline.stride_taken(None, 9) == pipeline.stride_taken(0, 9) == 1
-    assert pipeline.stride_taken(4, 9) == 4
-    assert pipeline.stride_taken(4, 1) == 1
+    assert (stream_table.stride_taken(None, 9)
+            == stream_table.stride_taken(0, 9) == 1)
+    assert stream_table.stride_taken(4, 9) == 4
+    assert stream_table.stride_taken(4, 1) == 1
 
 
 def _snapshot(run, path, **kw):
@@ -139,7 +141,7 @@ def test_auto_layout_under_a_stride_is_the_references(
     cursor) are the same file."""
     bw = CFG.batch_reads * (CFG.read_len - CFG.k + 1)
     bound = CAP + bw + bw // 2
-    monkeypatch.setattr(pipeline, "BUCKETED_MIN_MERGE_ROWS", bound)
+    monkeypatch.setattr(stream_table, "BUCKETED_MIN_MERGE_ROWS", bound)
     monkeypatch.setattr(jax_pipeline, "BUCKETED_MIN_MERGE_ROWS", bound)
     monkeypatch.setenv("GA_BUCKETED", "auto")
     reads = all_reads[:427]
@@ -260,7 +262,7 @@ def test_shard_plan_is_the_references(all_reads):
         assert plan.recv == want.recv and plan.stride == want.stride
     bound = plan.c_shard + 3 * plan.recv
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(pipeline, "BUCKETED_MIN_MERGE_ROWS", bound)
+        mp.setattr(stream_table, "BUCKETED_MIN_MERGE_ROWS", bound)
         assert pp._StreamPlan(b, 60, SCFG, 4, None, None, CAP,
                               merge_stride=2).buckets is None
         got = pp._StreamPlan(b, 60, SCFG, 4, None, None, CAP, merge_stride=4)

@@ -278,6 +278,71 @@ def test_count_finds_ambiguous_bases_on_the_device(monkeypatch, path,
     assert ("masked_windows" in m.counters) == bool(n_rate)
 
 
+SHARDED_PATHS = {
+    "one_shot": ({}, {}),
+    "flat": (dict(bucketed="off"), dict(GA_BUCKETED="0")),
+    "bucketed": (dict(bucketed="on", _buckets=8, _bucket_accum=2),
+                 dict(GA_BUCKETED="1", GA_BUCKETS="8", GA_BUCKET_ACCUM="2")),
+    "stride2": (dict(bucketed="off", merge_stride=2), dict(GA_BUCKETED="0")),
+}
+
+
+@pytest.mark.parametrize("n_rate", [0.004, 0.0], ids=["ns", "clean"])
+@pytest.mark.parametrize("path", sorted(SHARDED_PATHS))
+def test_sharded_count_finds_ambiguous_bases_on_the_device(monkeypatch, path,
+                                                           n_rate):
+    """The sharded count takes its Ns from the pack's flag, as the single
+    device does: on a 4-shard mesh, in one step or streamed (flat,
+    bucketed, stride 2), no host pass scans the reads (``has_ambiguous``,
+    also where ``parallel.pipeline`` would bind it, ``window_valid_np``);
+    the shard tables equal the JAX package's and the contigs the
+    oracle's."""
+    from genome_assembler_tpu_torch.models.oracle import assemble_oracle
+    from genome_assembler_tpu_torch.ops import kmer_ref
+    from genome_assembler_tpu_torch.utils import dna
+
+    reads = _reads(n_rate=n_rate)
+    second = reads[96:192]
+    second[second > 3] = 0  # a streamed batch without an N among four with
+    cfg = AssemblyConfig(k=K, read_len=60, batch_reads=96)
+    kw, jax_env = SHARDED_PATHS[path]
+    if kw:  # the streamed count: 5 global batches of 24 reads a shard
+        monkeypatch.setattr(pp, "DIST_STREAM_WINDOWS", 0)
+        monkeypatch.setattr(jax_pp, "DIST_STREAM_WINDOWS", 0)
+    want_contigs = assemble_oracle(reads, cfg)
+    mesh = jax_mesh(4)
+    with monkeypatch.context() as mp:
+        for name, value in jax_env.items():
+            mp.setenv(name, value)
+        words, counts, num = jax_pp._run_distributed_step(
+            reads, cfg, mesh, None, mesh_axes(mesh), None,
+            table_capacity=CAP, merge_stride=kw.get("merge_stride"))
+    words = np.asarray(words).reshape(4, -1, 1)
+    counts = np.asarray(counts).reshape(4, -1)
+
+    def host_scan(*args, **kwargs):
+        raise AssertionError("the reads were scanned on the host")
+
+    monkeypatch.setattr(dna, "has_ambiguous", host_scan)
+    monkeypatch.setattr(pp, "has_ambiguous", host_scan, raising=False)
+    monkeypatch.setattr(kmer_ref, "window_valid_np", host_scan)
+    mesh = build_mesh(4, devices=["cpu"])
+    tables = pp._run_distributed_step(reads, cfg, mesh, table_capacity=CAP,
+                                      **kw)
+    for s, t in enumerate(tables):
+        n = int(t.num_unique)
+        assert n == int(np.asarray(num)[s]) and n > 0 and not bool(t.overflow)
+        np.testing.assert_array_equal(
+            limbs_to_words(t.limbs[:n].numpy(), K), words[s, :n])
+        np.testing.assert_array_equal(t.counts[:n].numpy(), counts[s, :n])
+    m = Metrics()
+    public = {name: v for name, v in kw.items() if not name.startswith("_")}
+    assert pp.assemble_distributed_sharded(
+        reads, cfg, mesh, table_capacity=CAP, metrics=m,
+        **public) == want_contigs
+    assert "shard.scan" not in m.spans
+
+
 @pytest.mark.parametrize("resume", ["stream", "jax_stream", "table"])
 def test_resumed_run_counts_the_ambiguous_bases_of_every_read(
         monkeypatch, tmp_path, resume):
@@ -404,16 +469,24 @@ def test_stream_batch_alone_equals_the_streamed_batches():
     cfg = AssemblyConfig(k=K, read_len=60, batch_reads=96)
     mesh = build_mesh(4, devices=["cpu"])
     plan = pp._StreamPlan(reads.shape[0], 60, cfg, 4, None, None, CAP)
-    streamed = list(pp._stream_batches(mesh, reads, plan, 0, True))
+    streamed = list(pp._stream_batches(mesh, reads, plan, 0))
     assert [b[0] for b in streamed] == list(range(plan.num_batches))
-    for i, packed, inv, n_valid in streamed:
-        alone = pp._stream_batch(mesh, reads, plan, i, True)
+    for i, packed, ext, n_valid in streamed:
+        alone = pp._stream_batch(mesh, reads, plan, i)
         assert n_valid == alone[2] and sum(n_valid) == min(
             96, reads.shape[0] - 96 * i)
+        # one block on a single-device mesh: every shard has its flag
+        has_n = bool((reads[96 * i : 96 * i + 96] > 3).any())
         for s in range(4):
             assert torch.equal(packed[s], alone[0][s])
-            assert torch.equal(inv[s], alone[1][s])
+            for name in ("inv_bits", "flag"):
+                assert torch.equal(ext[s][name], alone[1][s][name])
+            assert bool(ext[s]["flag"]) == has_n
             rows = reads[96 * i + 24 * s : 96 * i + 24 * s + n_valid[s]]
             if n_valid[s]:
                 np.testing.assert_array_equal(
                     packed[s][: n_valid[s]].numpy(), pack_codes(rows))
+                np.testing.assert_array_equal(
+                    kmer_torch.unpack_invalid_mask(
+                        ext[s]["inv_bits"][: n_valid[s]], 60).numpy(),
+                    rows > 3)

@@ -84,6 +84,7 @@ def main() -> int:
     import genome_assembler_tpu_torch.reference as ref
     from genome_assembler_tpu_torch.models import pipeline
     from genome_assembler_tpu_torch.ops import _build
+    from genome_assembler_tpu_torch.ops.stream_table import CarriedTable
     from genome_assembler_tpu_torch.ops.kmer_torch import (
         pack_codes_device,
         pack_invalid_device,
@@ -184,14 +185,11 @@ def main() -> int:
 
     # ---- the whole count stage under each variant
     def stream(batches):
-        table = None
+        table = CarriedTable(capacity, 1, dev, None)
         for packed, inv in batches:
-            if table is None:
-                table = pipeline._count_batch(packed, LENGTH, K, inv,
-                                              out_cap=capacity)
-            else:
-                table = pipeline._stream_step(table, packed, LENGTH, K, inv)
-        return table
+            table.add(pipeline.extract_canonical_flat(packed, LENGTH, K,
+                                                      inv_bits=inv))
+        return table.finish()
 
     def count_host_sync():
         return stream(

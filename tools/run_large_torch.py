@@ -56,9 +56,9 @@ from genome_assembler_tpu_torch.host.traverse import contigs_equal
 from genome_assembler_tpu_torch.models.pipeline import (
     assemble_torch,
     pack_on_device,
-    use_bucketed,
 )
 from genome_assembler_tpu_torch.ops import _build, count_torch
+from genome_assembler_tpu_torch.ops.stream_table import use_bucketed
 from genome_assembler_tpu_torch.ops import kmer_torch as kmer
 from genome_assembler_tpu_torch.utils.config import AssemblyConfig
 from genome_assembler_tpu_torch.utils.device import (
