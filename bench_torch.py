@@ -29,7 +29,8 @@ windows on the same machine.
 ``single_shot_with_transfer_s``, ``stream_vs_single_shot``) and adds the
 card (``nvidia-smi``'s name and power limit), ``build_s`` (the kernel's
 build, before the first timed region), the extraction kernel's launches
-by leg and the pack kernel's (``pack_launches``), and the checks the run makes on the way (``extract_equal``,
+by leg and the pack and the insert kernel's (``pack_launches``,
+``insert_launches``), and the checks the run makes on the way (``extract_equal``,
 ``stream_table_equal``).
 
 What ``bench.py`` built around its TPU, and what stands here instead:
@@ -82,6 +83,7 @@ from genome_assembler_tpu_torch.models.pipeline import (
     count_reads_device,
 )
 from genome_assembler_tpu_torch.ops import _build, kmer_torch as kmer
+from genome_assembler_tpu_torch.ops.count_hash_torch import count_insert
 from genome_assembler_tpu_torch.utils.config import AssemblyConfig
 from genome_assembler_tpu_torch.utils.device import (
     card_line,
@@ -179,13 +181,16 @@ def run(args: argparse.Namespace) -> dict:
     card = card_line(dev)
     k = args.k
     kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
-    launches, pack_launches = {}, {}
+    count_insert.launches = 0
+    launches, pack_launches, insert_launches = {}, {}, {}
 
     def tally(leg):
         launches[leg] = (kmer.extract_canonical_flat.launches
                          - sum(launches.values()))
         pack_launches[leg] = (kmer.pack_on_device.launches
                               - sum(pack_launches.values()))
+        insert_launches[leg] = (count_insert.launches
+                                - sum(insert_launches.values()))
 
     build_s = None
     if on_card:
@@ -349,6 +354,7 @@ def run(args: argparse.Namespace) -> dict:
             "extract_bound_by": bound_by,
             "extract_launches": launches,
             "pack_launches": pack_launches,
+            "insert_launches": insert_launches,
             "assemble_s": asm_s,
             "assemble_reads_per_s": n_reads / asm_s,
             "assemble_stages_s": dict(mm.stages),

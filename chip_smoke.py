@@ -9,7 +9,7 @@ result line:
   1. the card: ``torch.cuda.get_device_name`` and ``nvidia-smi``'s name and
      power limit;
   2. build ``genome_assembler_tpu_torch/csrc/kmer_extract.cu``: the
-     extraction and the pack kernel, one library;
+     extraction, the pack and the insert kernel, one library;
   3. the kernel against its plain torch version on the card, bit-equal:
      k in {21, 25, 31, 41, 63} with ambiguous bases and n_valid < B, the
      edge shapes of its block layout (one window a read, read lengths off
@@ -24,8 +24,9 @@ result line:
      case (150 kb, 50x, k=41);
   5. CFG-2 at full size (4,641,652 bp, 50x, 100 bp reads, k=31, table
      capacity 5,242,880): one cold run, then a warm run with the kernel's
-     launch counter reset just before it; the contig must equal the
-     genome, and the warm per-stage seconds are printed;
+     launch counters reset just before it; the contig must equal the
+     genome, the extraction, pack and insert kernels must each launch once
+     a batch, and the warm per-stage seconds are printed;
   6. the sharded count on a mesh of 4 shards over the visible GPUs:
      CFG-1's contigs from ``assemble_distributed`` equal the oracle's,
      with per-window and with minimizer (m=15) routing, and the routed
@@ -38,10 +39,14 @@ result line:
      n_valid of the run's stream plan);
      ``assemble_distributed`` with the launch counter reset just before
      it gives one contig equal to the genome (wall and stage seconds,
-     routed bytes and peak device memory printed); the gathered table
-     equals the single-device ``count_reads_device`` table bit for bit;
-     one streamed batch is timed with CUDA events with and without its
-     merge, for the routing step's share;
+     routed bytes and peak device memory printed; one insert a batch and
+     shard); the gathered table equals the single-device
+     ``count_reads_device`` table bit for bit, and that table (the card's
+     hash table) equals the flat sort merges of the same batches on the
+     card; the insert kernel on the first and the last batch equals its
+     plain version (phase 19's check at CFG-4's table size); one streamed
+     batch is timed with CUDA events with and without its insert into the
+     shards' hash tables, for the routing step's share;
   8. CFG-4 through the sharded graph on 4 shards
      (``assemble_distributed_sharded`` with a ``"hash_shards"``
      checkpoint), the launch counter reset just before it: one contig
@@ -57,8 +62,10 @@ result line:
      with Ns in the reads and a batch size that leaves a short last
      batch; the ``count`` stage's seconds and the device's idle share over
      it from a ``torch.profiler`` trace, and one batch's fill, copy and
-     device milliseconds. (CFG-4's sharded count is read the same way
-     inside phase 7, from the run that gathers its table.);
+     device milliseconds (pack, extraction and the insert into the carried
+     hash table, beside the flat sort merge of the same batch). (CFG-4's
+     sharded count is read the same way inside phase 7, from the run that
+     gathers its table.);
  11. the acceptance runners 0, 1, 2 and 5 at full size through
      ``models.acceptance.run`` on the card: each must pass, each JSON line
      is printed;
@@ -98,7 +105,9 @@ result line:
      ``--rank-compress``, started by ``parallel/launch.py::spawn``);
  15. the bucketed merge: CFG-4's 12,000,000 reads on one device through
      ``count_reads_device`` with ``bucketed="off"`` and ``"on"`` (``"auto"``
-     must pick ``"on"`` at this size), the tables bit-equal, ``count``
+     must pick ``"on"`` at this size; on the card both count through the
+     hash table, the layout deciding the checkpoints' form and cursors,
+     so this holds that choice to the table), the tables bit-equal, ``count``
      seconds of each and the geometry printed; a bucketed stop and resume
      on CFG-2's reads equals the uninterrupted run; CFG-4 on 4 shards with
      ``bucketed="on"`` against ``"off"``: per-shard tables equal;
@@ -138,6 +147,19 @@ result line:
      plain pack; extraction without bits, with the flag at 0 and set),
      each time held to its bound: one under it fails the run. Every
      main path checks its pack launches (one a batch on one device).
+ 19. (run right after phase 5) the insert kernel (``count_insert_kernel``
+     in ``csrc/kmer_extract.cu``, the card's hash table of the streamed
+     count) against its plain version (``count_insert_ref`` on the host):
+     CFG-2's first and last batch into a table of its capacity, the
+     sorted tables, flags and claimed slots bit-equal, then that table's
+     rows inserted with their counts (a resume) equal to it; CFG-2's
+     ``count_reads_device`` (nine inserts, one sort) bit-equal to the flat
+     sort merges of the same batches on the card; the kernel timed with
+     CUDA events at the main batch (18,350,080 keys) into CFG-2's and
+     CFG-4's tables, once they hold every key and empty, beside its bound
+     (the key stream and a 32-byte sector read and written a key at
+     3.35 TB/s; a time under it fails the run) and the flat sort merge of
+     the same batch. Every main path checks its insert launches.
 
 The line before the last is the kernel report (launches summed over the
 main-path runs: CFG-2, CFG-4 gathered, CFG-4 sharded graph, the upload
@@ -146,7 +168,8 @@ bucketed counts of phase 15, the strided counts of phase 16, and
 phase 17's bench (its count, streamed and assembly legs; not the launches
 that check and time the kernel) and 40 Mb run, and given for each in
 ``launches_by_path``), then the pack kernel's (its launches on the same
-paths, its times from phase 18); the last line is
+paths, its times from phase 18) and the insert kernel's (its launches on
+the same paths, its times from phase 19); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Neither JAX nor the JAX package is ever imported.
 """
@@ -163,6 +186,7 @@ import time
 KERNEL_SOURCE = "genome_assembler_tpu_torch/csrc/kmer_extract.cu"
 KERNEL_REPLACES = "genome_assembler_tpu/ops/kmer_pallas.py:35"
 MAIN_BATCH = (262_144, 100, 31)  # reads, read length, k of one CFG-2 batch
+CFG4_CAPACITY = 20_971_520  # snug_capacity(1.5 x 12,000,000 + 4096)
 
 # Edge shapes of the kernel's block layout: (reads, read length, k,
 # n_valid, share of Ns). Reads 1 and 2 of each case (where there are
@@ -249,19 +273,34 @@ def time_cuda(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-# the pack kernel's launches by path, beside the extraction kernel's
+# the pack and the insert kernel's launches by path, beside the
+# extraction kernel's
 PACK_LAUNCHES: dict[str, int] = {}
+INSERT_LAUNCHES: dict[str, int] = {}
+
+
+def inserts() -> int:
+    """The insert kernel's launches since the last reset."""
+    from genome_assembler_tpu_torch.ops.count_hash_torch import count_insert
+
+    return count_insert.launches
 
 
 def reset_launches(kmer) -> None:
-    """Zero the extraction and the pack kernel's launch counters."""
+    """Zero the extraction, the pack and the insert kernel's launch
+    counters."""
+    from genome_assembler_tpu_torch.ops.count_hash_torch import count_insert
+
     kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
+    count_insert.launches = 0
 
 
-def tally_packs(kmer, path: str) -> int:
-    """Add the pack kernel's launches since the last reset to ``path``."""
+def tally_launches(kmer, path: str) -> int:
+    """Add the pack and the insert kernel's launches since the last reset
+    to ``path``; returns the pack's."""
     PACK_LAUNCHES[path] = (PACK_LAUNCHES.get(path, 0)
                            + kmer.pack_on_device.launches)
+    INSERT_LAUNCHES[path] = INSERT_LAUNCHES.get(path, 0) + inserts()
     return kmer.pack_on_device.launches
 
 
@@ -598,7 +637,7 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
                                       table_capacity=capacity, metrics=m)
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    check(tally_packs(kmer, "cfg2") == launches,
+    check(tally_launches(kmer, "cfg2") == launches,
           f"CFG-2 main path packed {kmer.pack_on_device.launches} batches "
           f"on the card for {launches} extractions")
     check(m.counters["ambiguous_batches"] == 0
@@ -607,9 +646,10 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
     peak = torch.cuda.max_memory_allocated(dev)
     check(len(contigs) == 1, f"CFG-2: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-2 contig != genome")
-    check(launches == -(-rs.num_reads // cfg.batch_reads),
-          f"CFG-2 main path launched the kernel {launches} times, not once "
-          f"a streamed batch")
+    check(launches == -(-rs.num_reads // cfg.batch_reads) == inserts()
+          == m.counters["hash_batches"],
+          f"CFG-2 main path launched the kernel {launches} times and the "
+          f"insert {inserts()} times, not once a streamed batch")
     windows = rs.num_reads * (100 - k + 1)
     stages = {name: round(s, 4) for name, s in m.stages.items()}
     log(f"CFG-2 warm run: {wall:.3f} s wall, 1 contig == genome "
@@ -617,6 +657,140 @@ def phase_cfg2(torch, ref, pipeline, kmer, dev):
         f"{launches}, peak device memory {peak / 2**30:.2f} GiB")
     log("CFG-2 warm stages (s): " + json.dumps(stages))
     return launches, rs.codes, capacity
+
+
+def batch_keys(torch, pipeline, kmer, rows, dev, k: int = 31):
+    """One batch's raw canonical keys as the main path makes them on the
+    card (its pack and extraction): [B x windows, 1] int64."""
+    packed, ext = pipeline.pack_batch(torch.from_numpy(rows).to(dev))
+    return kmer.extract_canonical_flat(packed, rows.shape[1], k, **ext)
+
+
+def sort_merged(count_torch, keys_of, n_batches: int, capacity: int):
+    """The flat sort merges of ``n_batches`` batches' keys on the card, the
+    plain version of the hash table's count: the first batch counted
+    straight into a table of ``capacity`` rows, each later one merged."""
+    table = None
+    for i in range(n_batches):
+        keys = keys_of(i)
+        table = (count_torch.resize_table(count_torch.count_keys(keys),
+                                          capacity)
+                 if table is None else count_torch.merge_raw_keys(table, keys))
+    return table
+
+
+def table_to_cpu(table):
+    return type(table)(*(t.cpu() for t in table))
+
+
+def check_insert(torch, ch, batches, capacity: int, dev, what: str):
+    """The insert kernel against its plain version on the CPU: the
+    ``batches`` (keys on the card) into a table of ``capacity`` rows, then
+    that table's rows with their counts into a fresh one (a resume's
+    weighted insert); sorted tables, flags and claimed slots bit-equal.
+    Returns (the card's table, its unique keys)."""
+    ht, plain = ch.empty_hash(capacity, dev), ch.empty_hash(capacity, "cpu")
+    for keys in batches:
+        ch.count_insert(ht, keys)
+        ch.count_insert_ref(plain, keys.cpu())
+    got, want = ch.hash_to_table(ht), ch.hash_to_table(plain)
+    check(tables_bit_equal(torch, table_to_cpu(got), want)
+          and int(ht.claimed) == int(plain.claimed),
+          f"insert kernel != plain version at {what}: claimed "
+          f"{int(ht.claimed)} vs {int(plain.claimed)}")
+    del ht, plain
+    resumed = ch.empty_hash(capacity, dev)
+    ch.count_insert(resumed, got.limbs, got.counts)
+    resumed_plain = ch.empty_hash(capacity, "cpu")
+    ch.count_insert_ref(resumed_plain, want.limbs, want.counts)
+    check(tables_bit_equal(torch, ch.hash_to_table(resumed), got)
+          and tables_bit_equal(torch, ch.hash_to_table(resumed_plain), want),
+          f"weighted insert of the table at {what} != the table")
+    return got, int(got.num_unique)
+
+
+def phase_insert(torch, ref, pipeline, kmer, reads, capacity, dev):
+    """Phase 19: the insert kernel (``count_insert_kernel``) on CFG-2's
+    batches against its plain version; CFG-2's count through the hash
+    table against the flat sort merges on the card; the kernel timed at
+    the main path's batch into CFG-2's and CFG-4's tables."""
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+    from genome_assembler_tpu_torch.ops import count_torch
+
+    b = MAIN_BATCH[0]
+    n_batches = -(-reads.shape[0] // b)
+
+    def keys_of(i):
+        return batch_keys(torch, pipeline, kmer, reads[i * b:(i + 1) * b],
+                          dev)
+
+    t0 = time.perf_counter()
+    _, unique = check_insert(torch, ch, [keys_of(0), keys_of(n_batches - 1)],
+                             capacity, dev, "CFG-2's first and last batch")
+    log(f"insert kernel, CFG-2's first and last batch ({b} and "
+        f"{reads.shape[0] - (n_batches - 1) * b} reads) into a table of "
+        f"{capacity} rows ({ch.hash_slots(capacity)} slots): equal to the "
+        f"plain version ({unique} keys), and the table's rows inserted "
+        f"with their counts equal to the table ({time.perf_counter() - t0:.1f}"
+        f" s with the plain version on the host)")
+
+    cfg = ref.AssemblyConfig(k=31, read_len=100)
+    m = pipeline.Metrics()
+    reset_launches(kmer)
+    hashed = pipeline.count_reads_device(reads, cfg, device=dev,
+                                         table_capacity=capacity, metrics=m)
+    check(inserts() == n_batches == m.counters["hash_batches"],
+          f"CFG-2's count inserted {inserts()} batches of {n_batches}")
+    plain = sort_merged(count_torch, keys_of, n_batches, capacity)
+    check(tables_bit_equal(torch, hashed, plain),
+          "CFG-2's count through the hash table != the flat sort merges")
+    log(f"CFG-2's count: the hash table ({n_batches} inserts, one sort) "
+        f"bit-equal to the flat sort merges of the same batches on the card "
+        f"({int(plain.num_unique)} unique k-mers)")
+    del plain
+
+    keys = keys_of(1)
+    n = keys.shape[0]
+    bound_ms, nbytes = ch.insert_bound_ms(n)
+    ms, first_ms = {}, {}
+    for name, cap in (("cfg2", capacity), ("cfg4", CFG4_CAPACITY)):
+        ht = ch.empty_hash(cap, dev)
+        for i in range(n_batches):
+            ch.count_insert(ht, keys_of(i))
+        ms[name] = time_cuda(torch, lambda: ch.count_insert(ht, keys), 20)
+        del ht
+        # into empty tables: every key a claim
+        fresh = [ch.empty_hash(cap, dev) for _ in range(4)]
+        ch.count_insert(fresh[0], keys)
+        torch.cuda.synchronize()
+        times = []
+        for ht in fresh[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ch.count_insert(ht, keys)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        first_ms[name] = sorted(times)[1]
+        del fresh
+        torch.cuda.empty_cache()
+    plain_ms = time_cuda(torch, lambda: count_torch.merge_raw_keys(hashed,
+                                                                   keys), 10)
+    log("insert kernel, one main-path batch of " + str(n) + " keys: "
+        + json.dumps({"ms_table_holds_every_key": {
+            k_: round(v, 4) for k_, v in ms.items()},
+            "ms_empty_table": {k_: round(v, 4) for k_, v in first_ms.items()},
+            "bound_ms": round(bound_ms, 4), "bound_bytes": nbytes,
+            "plain_merge_ms": round(plain_ms, 4)}))
+    for name in ms:
+        check(min(ms[name], first_ms[name]) >= bound_ms,
+              f"insert into the {name} table: {ms[name]:.4f} ms, under its "
+              f"{bound_ms:.4f} ms bound: the timing is wrong")
+    return {"ms": ms["cfg2"], "ms_cfg4_table": ms["cfg4"],
+            "ms_empty_table": first_ms["cfg2"],
+            "ms_empty_cfg4_table": first_ms["cfg4"], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "keys": n}
 
 
 def tables_equal(torch, a, b) -> bool:
@@ -681,6 +855,7 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     log(f"CFG-4: simulated {rs.num_reads} reads in "
         f"{time.perf_counter() - t0:.2f} s")
     capacity = snug_capacity(int(1.5 * glen) + 4096)
+    check(capacity == CFG4_CAPACITY, f"unexpected CFG-4 capacity {capacity}")
     cfg = ref.AssemblyConfig(k=k, read_len=100)
     mesh = mesh_mod.build_mesh(4)
     want = [ref.decode_seq(genome)]
@@ -716,8 +891,10 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
                                         table_capacity=capacity)
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    check(tally_packs(kmer, "cfg4_gathered") > 0,
+    check(tally_launches(kmer, "cfg4_gathered") > 0,
           "CFG-4 main path never launched the pack kernel")
+    check(inserts() == launches, f"CFG-4 main path: {inserts()} inserts for "
+          f"{launches} extractions (one a batch and shard)")
     peak = peaks_gib(torch, mesh)
     check(len(contigs) == 1, f"CFG-4: {len(contigs)} contigs, expected 1")
     check(ref.contigs_equal(contigs, want), "CFG-4 contig != genome")
@@ -762,21 +939,47 @@ def phase_cfg4(torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev):
     log(f"CFG-4 gathered table == single-device table "
         f"({int(single.num_unique)} unique k-mers); count on 4 shards "
         f"{t_dist:.3f} s (profiled), on one device {t_single:.3f} s")
-    del gathered, single
+    del gathered
+
+    # both counts went through hash tables: hold the single device's to
+    # the flat sort merges of the same batches, and the insert kernel to
+    # its plain version on the first and the last batch
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+
+    b = cfg.batch_reads
+    n_b = -(-rs.num_reads // b)
+
+    def keys_of(i):
+        return batch_keys(torch, pipeline, kmer, rs.codes[i * b:(i + 1) * b],
+                          dev)
+
+    plain = sort_merged(count_torch, keys_of, n_b, capacity)
+    check(tables_bit_equal(torch, single, plain),
+          "CFG-4: the single-device hash table != the flat sort merges")
+    del single, plain
+    t0 = time.perf_counter()
+    _, unique = check_insert(torch, ch, [keys_of(0), keys_of(n_b - 1)],
+                             capacity, dev, "CFG-4's first and last batch")
+    log(f"CFG-4 single-device table == the flat sort merges of its {n_b} "
+        f"batches on the card; the insert kernel on its first and last "
+        f"batch into {ch.hash_slots(capacity)} slots equal to the plain "
+        f"version ({unique} keys), and the weighted insert of that table "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # routing share of one streamed batch, at the run's shapes
     packed, ext, nv = dist._stream_batch(mesh, rs.codes, plan, 0)
     owned = dist._make_owned_keys(mesh, k, 100, plan.bucket_cap, None)
     step = dist.make_distributed_stream_step(mesh, k, 100, plan.bucket_cap)
-    # flat carried tables past their first merge: each step merges
-    tables = [CarriedTable(plan.c_shard, 1, d_, None,
-                           table=count_torch.empty_table(plan.c_shard, 1, d_))
-              for d_ in mesh.devices]
+    # the carried tables as the run keeps them on the card: hash tables,
+    # so each step inserts the routed keys
+    tables = [CarriedTable(plan.c_shard, 1, d_, None) for d_ in mesh.devices]
+    check(all(t.hash is not None for t in tables),
+          "CFG-4's carried shard tables are not hash tables on the card")
     route_ms = time_cuda(torch, lambda: owned(packed, nv, ext), 5)
     step_ms = time_cuda(torch, lambda: step(tables, packed, nv, ext), 5)
     log(f"CFG-4 one streamed batch ({plan.batch_total} reads on 4 shards): "
-        f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the merge "
-        f"({100 * route_ms / step_ms:.1f}%)")
+        f"route {route_ms:.3f} ms of {step_ms:.3f} ms with the insert into "
+        f"the shards' hash tables ({100 * route_ms / step_ms:.1f}%)")
     del packed, tables
     single = {"wall_s": round(wall, 3), "stages_s": stages, "peak_gib": peak}
     return launches, err, (rs.codes, cfg, capacity, contigs), single
@@ -813,8 +1016,10 @@ def phase_cfg4_sharded(torch, ref, dist, mesh_mod, kmer, reads, cfg,
     )
     wall = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    check(tally_packs(kmer, "cfg4_sharded_graph") > 0,
+    check(tally_launches(kmer, "cfg4_sharded_graph") > 0,
           "CFG-4 sharded graph never launched the pack kernel")
+    check(inserts() == launches, f"CFG-4 sharded graph: {inserts()} inserts "
+          f"for {launches} extractions (one a batch and shard)")
     peak = peaks_gib(torch, mesh)
     check(len(contigs) == 1,
           f"CFG-4 sharded graph: {len(contigs)} contigs, expected 1")
@@ -904,6 +1109,7 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
     import numpy as np
 
     from genome_assembler_tpu_torch.ops import count_torch
+    from genome_assembler_tpu_torch.ops.stream_table import CarriedTable
 
     cfg = ref.AssemblyConfig(k=31, read_len=100)
     batches = -(-reads.shape[0] // cfg.batch_reads)
@@ -918,9 +1124,11 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
     torch.cuda.synchronize(dev)
     t_ring = time.perf_counter() - t0
     launches = kmer.extract_canonical_flat.launches
-    check(launches == batches == tally_packs(kmer, "cfg2_upload_ring"),
-          f"the ring run launched the kernel {launches} times and the pack "
-          f"{kmer.pack_on_device.launches} times for {batches} batches")
+    check(launches == batches == tally_launches(kmer, "cfg2_upload_ring")
+          == inserts(),
+          f"the ring run launched the kernel {launches} times, the pack "
+          f"{kmer.pack_on_device.launches} and the insert {inserts()} times "
+          f"for {batches} batches")
     t0 = time.perf_counter()
     plain = count(reads, cfg, _plain_upload=True)
     torch.cuda.synchronize(dev)
@@ -980,17 +1188,26 @@ def phase_upload(torch, ref, pipeline, metrics_mod, kmer, reads, capacity,
     copy_ms = time_cuda(torch, lambda: buf.copy_(slot, non_blocking=True), 10)
     table = count(reads[: 2 * b_], cfg)
     pack_ms = time_cuda(torch, lambda: pipeline.pack_on_device(buf), 10)
+    # the carried table as the main path keeps it on the card: a hash
+    # table, here holding the first two batches' keys with their counts
+    carried = CarriedTable(capacity, 1, dev, None, table=table)
+    check(carried.hash is not None, "CFG-2's carried table is not a hash "
+          "table on the card")
 
-    def device_step():
+    def keys():
         packed, ext = pipeline.pack_batch(buf)
-        count_torch.merge_raw_keys(
-            table, kmer.extract_canonical_flat(packed, length, 31, **ext))
+        return kmer.extract_canonical_flat(packed, length, 31, **ext)
 
-    step_ms = time_cuda(torch, device_step, 5)
+    step_ms = time_cuda(torch, lambda: carried.add(keys()), 5)
+    # the plain version: the flat sort merge of the same batch
+    merge_ms = time_cuda(
+        torch, lambda: count_torch.merge_raw_keys(table, keys()), 5)
     log(f"one CFG-2 batch ({b_} x {length}): host fill of the pinned slot "
         f"{sorted(fills)[2]:.3f} ms, copy of {b_ * length} bytes "
         f"{copy_ms:.3f} ms, device pack {pack_ms:.3f} ms, device pack + "
-        f"extraction + merge {step_ms:.3f} ms")
+        f"extraction + insert into the carried hash table {step_ms:.3f} ms "
+        f"(pack + extraction + the flat sort merge, the plain version: "
+        f"{merge_ms:.3f} ms)")
     return launches
 
 
@@ -1006,8 +1223,9 @@ def phase_accept(torch, acceptance, kmer):
     failed = [r.config for r in results if not r.passed]
     check(not failed, f"acceptance configs {failed} failed")
     log(f"accept 0, 1, 2, 5: all passed in {time.perf_counter() - t0:.1f} s")
-    check(tally_packs(kmer, "accept_0_1_2_5") > 0,
-          "the acceptance runners never launched the pack kernel")
+    check(tally_launches(kmer, "accept_0_1_2_5") > 0 and inserts() > 0,
+          "the acceptance runners never launched the pack or the insert "
+          "kernel")
     return kmer.extract_canonical_flat.launches
 
 
@@ -1127,11 +1345,18 @@ def phase_multiprocess(torch, ref, launch, reads, capacity, contigs, ck8,
                   f"{name}: rank {r} reports hosts {rep['hosts']}")
             check(rep["device"] == f"cuda:{r}" and rep["rank"] == r,
                   f"{name}: rank {r} ran on {rep['device']}")
-            check(rep["kernel_launches"] > 0 and rep["pack_launches"] > 0,
-                  f"{name}: rank {r} never launched the kernels")
+            check(rep["kernel_launches"] > 0 and rep["pack_launches"] > 0
+                  and rep["insert_launches"] == rep["kernel_launches"],
+                  f"{name}: rank {r} launched the extraction "
+                  f"{rep['kernel_launches']}, the pack "
+                  f"{rep['pack_launches']} and the insert "
+                  f"{rep['insert_launches']} times")
         launches += sum(rep["kernel_launches"] for rep in reports)
         PACK_LAUNCHES["cfg4_multiprocess"] = PACK_LAUNCHES.get(
             "cfg4_multiprocess", 0) + sum(rep["pack_launches"]
+                                          for rep in reports)
+        INSERT_LAUNCHES["cfg4_multiprocess"] = INSERT_LAUNCHES.get(
+            "cfg4_multiprocess", 0) + sum(rep["insert_launches"]
                                           for rep in reports)
         r0 = reports[0]
         runs[name] = {
@@ -1438,13 +1663,14 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
         if layout == "on" and not secs["on"]:
             launches["cfg4_bucketed_one_device"] = (
                 kmer.extract_canonical_flat.launches)
-            tally_packs(kmer, "cfg4_bucketed_one_device")
+            tally_launches(kmer, "cfg4_bucketed_one_device")
         secs[layout].append(s_)
     check(tables_bit_equal(torch, tables["on"], tables["off"]),
           "CFG-4 on one device: bucketed table != flat table")
     check(launches["cfg4_bucketed_one_device"] == -(-reads.shape[0]
                                                     // cfg.batch_reads)
-          == PACK_LAUNCHES["cfg4_bucketed_one_device"],
+          == PACK_LAUNCHES["cfg4_bucketed_one_device"]
+          == INSERT_LAUNCHES["cfg4_bucketed_one_device"],
           "the bucketed count did not launch the kernels once a batch")
     log("bucketed, CFG-4 on one device: " + json.dumps({
         "merge_rows": capacity + merge_windows,
@@ -1492,7 +1718,8 @@ def phase_bucketed(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
         shard_secs[layout] = round(time.perf_counter() - t0, 4)
     launches["cfg4_bucketed_4_shards"] = kmer.extract_canonical_flat.launches
     check(launches["cfg4_bucketed_4_shards"] > 0
-          and tally_packs(kmer, "cfg4_bucketed_4_shards") > 0,
+          and tally_launches(kmer, "cfg4_bucketed_4_shards") > 0
+          and inserts() == launches["cfg4_bucketed_4_shards"],
           "the bucketed 4-shard count never launched the kernels")
     check(all(tables_bit_equal(torch, a, b) for a, b in
               zip(shard_tables["on"], shard_tables["off"])),
@@ -1549,17 +1776,17 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
             pipeline.count_reads_device(
                 reads, cfg, device=dev, table_capacity=capacity,
                 bucketed=layout, merge_stride=stride)), kmer, [dev])
-        check(n == n_batches == kmer.pack_on_device.launches,
-              f"stride {stride} {layout}: {n} launches and "
-              f"{kmer.pack_on_device.launches} packs for {n_batches} "
-              f"batches")
+        check(n == n_batches == kmer.pack_on_device.launches == inserts(),
+              f"stride {stride} {layout}: {n} launches, "
+              f"{kmer.pack_on_device.launches} packs and {inserts()} inserts "
+              f"for {n_batches} batches")
         if base is None:
             base = t
         check(tables_bit_equal(torch, t, base),
               f"CFG-4 stride {stride}, {layout}: table != stride 1")
         if stride > 1:
             launches["cfg4_strided_one_device"] += n
-            tally_packs(kmer, "cfg4_strided_one_device")
+            tally_launches(kmer, "cfg4_strided_one_device")
         r = runs.setdefault(f"{stride}/{layout}", {
             "stride": stride, "layout": layout,
             "auto_takes": "buckets" if stream_table.use_bucketed(
@@ -1588,8 +1815,8 @@ def phase_stride(torch, ref, pipeline, dist, mesh_mod, kmer, cfg4,
                     bucketed=layout, merge_stride=stride), kmer,
                 mesh.devices)
             launches["cfg4_strided_4_shards"] += n
-            check(n == 4 * plan.num_batches
-                  and tally_packs(kmer, "cfg4_strided_4_shards") > 0,
+            check(n == 4 * plan.num_batches == inserts()
+                  and tally_launches(kmer, "cfg4_strided_4_shards") > 0,
                   f"4 shards stride {stride}: {n} launches, "
                   f"{kmer.pack_on_device.launches} packs")
             check(all(tables_bit_equal(torch, a, b_)
@@ -1699,11 +1926,15 @@ def phase_entry_points() -> dict:
     check(large["contigs"] == 1 and large["n50"] == 40_000_000,
           f"40 Mb run: {large['contigs']} contigs, n50 {large['n50']}")
     batches = -(-large["reads"] // 262_144)
-    check(large["extract_launches"] == 2 * batches == large["pack_launches"],
-          f"40 Mb run: {large['extract_launches']} launches and "
-          f"{large['pack_launches']} packs for two runs of {batches} batches")
+    check(large["extract_launches"] == 2 * batches == large["pack_launches"]
+          == large["insert_launches"],
+          f"40 Mb run: {large['extract_launches']} launches, "
+          f"{large['pack_launches']} packs and {large['insert_launches']} "
+          f"inserts for two runs of {batches} batches")
     PACK_LAUNCHES["bench_torch"] = sum(d["pack_launches"].values())
     PACK_LAUNCHES["run_large_40mb"] = large["pack_launches"]
+    INSERT_LAUNCHES["bench_torch"] = sum(d["insert_launches"].values())
+    INSERT_LAUNCHES["run_large_40mb"] = large["insert_launches"]
     check(PACK_LAUNCHES["bench_torch"] > 0,
           "bench_torch never launched the pack kernel")
     log(f"40 Mb run: cold {large['cold_s']:.6g} s, warm {large['warm_s']:.6g}"
@@ -1739,7 +1970,8 @@ def main() -> int:
     lib = _build.build("kmer_extract")
     _build.kmer_extract_fn()
     _build.pack_reads_fn()
-    log(f"built {KERNEL_SOURCE} (extraction and pack) -> {lib} in "
+    _build.count_insert_fn()
+    log(f"built {KERNEL_SOURCE} (extraction, pack and insert) -> {lib} in "
         f"{time.perf_counter() - t0:.2f} s")
 
     err, times = phase_kernel(torch, ref, kmer, dev)
@@ -1748,6 +1980,8 @@ def main() -> int:
     by_path = {}
     by_path["cfg2"], cfg2_reads, cfg2_cap = phase_cfg2(torch, ref, pipeline,
                                                        kmer, dev)
+    insert_times = phase_insert(torch, ref, pipeline, kmer, cfg2_reads,
+                                cfg2_cap, dev)
     phase_mesh_cfg1(torch, ref, dist, mesh_mod)
     by_path["cfg4_gathered"], cfg4_err, cfg4, single_gathered = phase_cfg4(
         torch, ref, pipeline, dist, mesh_mod, metrics_mod, kmer, dev)
@@ -1805,6 +2039,18 @@ def main() -> int:
         "launches_by_path": PACK_LAUNCHES,
         "max_abs_err": 0,
         **pack_times,
+        "library_ms": None,
+    }, {
+        "name": "count_insert",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": None,
+        "launches": sum(INSERT_LAUNCHES.values()),
+        "launches_by_path": INSERT_LAUNCHES,
+        "max_abs_err": 0,
+        **insert_times,
+        # no PyTorch call counts keys into a hash table; plain_ms is the
+        # flat sort merge of the same batch
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

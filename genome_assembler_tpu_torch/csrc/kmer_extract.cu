@@ -1,5 +1,6 @@
 // The port's kernels for Hopper (sm_90a), one library: the canonical k-mer
-// extraction, and below it the pack of raw reads that feeds it.
+// extraction, below it the pack of raw reads that feeds it, and last the
+// insert of a batch's keys into the streamed count's hash table.
 //
 // Canonical k-mer extraction: every window built in a fixed number of
 // steps from the packed row's own bits, one contiguous stream of 16-byte
@@ -465,5 +466,160 @@ extern "C" int pack_reads_launch(const void* codes, long long rows,
   pack_reads_kernel<<<(unsigned)blocks, kPackThreads, 0, s>>>(
       (const uint8_t*)codes, rows, read_len, (uint8_t*)packed, (uint8_t*)inv,
       (int*)flag, (unsigned long long*)batches);
+  return (int)cudaGetLastError();
+}
+
+// --------------------------------------------------------------------------
+// The count insert: one batch's one-limb keys into the open-addressing hash
+// table that a streamed count carries from batch to batch.
+//
+// Replaces no TPU kernel: the JAX package counts by sorts
+// (genome_assembler_tpu/ops/count_jax.py merge_raw_keys, ops/bucketed.py),
+// because the TPU has no efficient data-dependent placement, so every exact
+// counting scheme that is not a sort (radix partition, hash table) lost
+// there (ARCHITECTURE.md). That is a limit of the TPU: the card has fast
+// atomics in its 50 MB L2 and takes random 32-byte sectors well. So the
+// port's carried table is this hash table, updated in place batch by batch
+// and sorted once, when the stream ends or a checkpoint is taken
+// (ops/count_hash_torch.py, ops/stream_table.py).
+//
+//   in : keys [n] int64, one-limb canonical keys (k <= 31); INT64_MAX, the
+//        sentinel, is no key and its rows are skipped. weights [n] int32 or
+//        null: a row's weight (null: 1 a row; a resumed table's rows carry
+//        their counts).
+//   table: `slots` 16-byte slots {int64 key, uint32 count, uint32 pad},
+//        `slots` a power of two; an empty slot holds INT64_MAX and count 0.
+//   claimed: uint64, the slots claimed so far (the table's unique keys).
+//   overflow: int32, set once `claimed` passes `capacity`, or when a key
+//        finds neither its own slot nor an empty one (the table is full;
+//        the key's weight is lost, which the flag reports).
+//
+// A key's probe starts at a 64-bit finalizer of the key (splitmix64's) and
+// walks linearly. The finalizer is independent of the sharded count's owner
+// hash (ops/hash_torch.py owner_of) and of the bucket mix
+// (ops/bucketed_torch.py _bucket_of): every key of a shard shares its owner
+// hash, and a slot hash correlated with it would crowd part of the table. A
+// slot that holds the key takes an atomicAdd of the weight; an empty one is
+// claimed by atomicCAS on the key, then takes the add. A key once written
+// never changes, so a probe's plain load can only be stale where it reads
+// an empty slot, and the CAS then returns the key that is there.
+//
+// What bounds it on the card: device-memory bytes, the key stream (8 B a
+// row, 4 more with weights) and one random sector read and written back a
+// row (64 B): about 72 B a row, so 18.35M rows (262,144 reads x 70
+// windows) take 1.32 GB, 0.39 ms at 3.35 TB/s. What the design does:
+//
+//   * A probe and its add touch one 32-byte sector: the key and its count
+//     share a 16-byte slot, and at a load factor of at most one half (the
+//     wrapper sizes `slots` at twice the table's capacity or more) almost
+//     every probe ends at its first slot.
+//   * The add is a fire-and-forget reduction in L2; only the probe's load
+//     waits. One row a thread, 256 threads a block, and thousands of blocks
+//     keep enough loads in flight to cover the memory's latency.
+//   * Claims count into `claimed` once per group of threads that claim
+//     together (one atomic a coalesced group, not one a key).
+
+#include <cooperative_groups.h>
+
+namespace {
+
+namespace cg = cooperative_groups;
+
+constexpr int kInsertThreads = 256;
+constexpr unsigned long long kEmpty = 0x7fffffffffffffffull;  // INT64_MAX
+// probes between two reads of `claimed` to see whether the table is full
+constexpr unsigned long long kFullCheck = 64;
+
+struct __align__(16) Slot {
+  unsigned long long key;
+  unsigned int count;
+  unsigned int pad;
+};
+
+// splitmix64's finalizer: every bit of the key moves every bit of the slot.
+__device__ __forceinline__ unsigned long long fmix64(unsigned long long z) {
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+
+// A slot was claimed: count it, one atomic for the threads that claim in
+// step, and flag the table once its unique keys pass `capacity`.
+__device__ __forceinline__ void count_claim(unsigned long long* claimed,
+                                            unsigned long long capacity,
+                                            int* overflow) {
+  cg::coalesced_group g = cg::coalesced_threads();
+  if (g.thread_rank() == 0) {
+    const unsigned long long before = atomicAdd(claimed, (unsigned long long)g.size());
+    if (before + g.size() > capacity) *reinterpret_cast<volatile int*>(overflow) = 1;
+  }
+}
+
+__global__ void __launch_bounds__(kInsertThreads) count_insert_kernel(
+    const long long* __restrict__ keys, const int* __restrict__ weights,
+    long long n, Slot* table, unsigned long long mask,
+    unsigned long long capacity, unsigned long long* claimed, int* overflow) {
+  const long long i = (long long)blockIdx.x * kInsertThreads + threadIdx.x;
+  if (i >= n) return;
+  const unsigned long long key = (unsigned long long)__ldg(keys + i);
+  if (key == kEmpty) return;
+  const unsigned int w = weights == nullptr ? 1u : (unsigned int)__ldg(weights + i);
+  unsigned long long pos = fmix64(key) & mask;
+  for (unsigned long long step = 0;; ++step) {
+    Slot* s = table + pos;
+    unsigned long long cur = s->key;
+    if (cur == kEmpty) {
+      cur = atomicCAS(&s->key, kEmpty, key);
+      if (cur == kEmpty) {
+        count_claim(claimed, capacity, overflow);
+        atomicAdd(&s->count, w);
+        return;
+      }
+    }
+    if (cur == key) {
+      atomicAdd(&s->count, w);
+      return;
+    }
+    // every slot walked, or the table full: the key has no slot
+    if (step == mask ||
+        (step % kFullCheck == kFullCheck - 1 &&
+         *reinterpret_cast<volatile unsigned long long*>(claimed) > mask)) {
+      *reinterpret_cast<volatile int*>(overflow) = 1;
+      return;
+    }
+    pos = (pos + 1) & mask;
+  }
+}
+
+}  // namespace
+
+// Plain C entry point (loaded with ctypes). Launches on `stream`, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() so that a
+// refused launch is reported at once; a shape or a pointer the kernel cannot
+// take is cudaErrorInvalidValue. `keys` is n contiguous int64, `weights` n
+// contiguous int32 or null; `table` 16-byte aligned, `slots` a power of two;
+// `claimed` (uint64) and `overflow` (int32) belong to the table.
+extern "C" int count_insert_launch(const void* keys, const void* weights,
+                                   long long n, void* table, long long slots,
+                                   long long capacity, void* claimed,
+                                   void* overflow, void* stream) {
+  if (n < 0 || slots < 1 || (slots & (slots - 1)) != 0 || capacity < 0 ||
+      capacity > slots || table == nullptr || claimed == nullptr ||
+      overflow == nullptr || (n > 0 && keys == nullptr) ||
+      reinterpret_cast<uintptr_t>(table) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(keys) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(weights) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(claimed) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(overflow) % 4 != 0 ||
+      (n + kInsertThreads - 1) / kInsertThreads > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return (int)cudaSuccess;
+  const long long blocks = (n + kInsertThreads - 1) / kInsertThreads;
+  count_insert_kernel<<<(unsigned)blocks, kInsertThreads, 0,
+                        (cudaStream_t)stream>>>(
+      (const long long*)keys, (const int*)weights, n, (Slot*)table,
+      (unsigned long long)(slots - 1), (unsigned long long)capacity,
+      (unsigned long long*)claimed, (int*)overflow);
   return (int)cudaGetLastError();
 }

@@ -49,7 +49,13 @@ from ..ops.bucketed_torch import (
 )
 from ..ops.count_torch import CountTable
 from ..ops.kmer_torch import extract_canonical_flat, pack_on_device
-from ..ops.stream_table import CarriedTable, stream_layout, stride_taken
+from ..ops.stream_table import (
+    SNAPSHOT_DROPS,
+    CarriedTable,
+    count_hash_use,
+    stream_layout,
+    stride_taken,
+)
 from ..ops.unitig_torch import compress_unitigs_device
 from ..utils.device import resolve_device
 from ..utils.keys import limbs_to_words, n_limbs
@@ -254,7 +260,9 @@ def count_reads_device(
     batch and adds each batch's raw keys to one ``CarriedTable``
     (``ops/stream_table.py``, the one module that holds the merge policy:
     the first flat merge counts straight into a table padded to the
-    capacity, every later one merges into it). The kernel
+    capacity, every later one merges into it; on a card with k <= 31 the
+    table is a hash table that takes each batch's keys at once, counted
+    as ``hash_batches`` and ``hash_slots`` in ``metrics``). The kernel
     takes any batch size, so the short last batch is not padded. On a
     card the batches go through an ``UploadRing`` (``UPLOAD_PREFETCH``
     batches ahead); on the CPU, or with ``_plain_upload`` (the on-card
@@ -285,7 +293,7 @@ def count_reads_device(
     ``count.fill`` and ``count.step`` (each batch's copy into host
     memory, and its pack, extraction and merge as enqueued),
     ``count.wait`` (the ring blocked on a copy) and ``count.finish`` (the
-    tail merge).
+    tail merge, or the hash table's sort).
 
     stream_checkpoint + stream_checkpoint_every=N: once N streamed batches
     have passed (in the bucketed layout or under a stride: at the next
@@ -293,7 +301,9 @@ def count_reads_device(
     ``stream_checkpoint``; resume_stream_from continues from such a
     snapshot (written by either package) to the same table as an
     uninterrupted run. The snapshot's k, batch, capacity, stride, read
-    count and layout must match this run's.
+    count and layout must match this run's. On a card a bucketed snapshot
+    that would drop keys of the exact hash table (one bucket past its
+    rows) raises instead of writing a truncated file.
     abort_after_batch=n raises after n batches of this call (the tests'
     stand-in for a killed run).
     """
@@ -355,8 +365,11 @@ def count_reads_device(
         )
 
     def save(next_batch):
+        table, drops = carried.snapshot()
+        if bool(drops):
+            raise RuntimeError(SNAPSHOT_DROPS)
         save_stream_checkpoint(
-            carried.snapshot, stream_checkpoint, cfg.k,
+            table, stream_checkpoint, cfg.k,
             next_start=starts[next_batch], params=ck_params,
         )
 
@@ -380,6 +393,7 @@ def count_reads_device(
             # the table after batch i, whatever is already uploaded
             cursor.after(i, carried.at_boundary)
     with m.span("count.finish"):
+        count_hash_use(m, [carried])
         return carried.finish()
 
 

@@ -127,3 +127,23 @@ def pack_reads_fn():
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def count_insert_fn():
+    """The ``count_insert_launch`` C entry (in the library of
+    ``kmer_extract``) with its ctypes signature."""
+    fn = load("kmer_extract").count_insert_launch
+    fn.argtypes = [
+        ctypes.c_void_p,  # keys [n] int64
+        ctypes.c_void_p,  # weights [n] int32 (may be NULL)
+        ctypes.c_longlong,  # n
+        ctypes.c_void_p,  # table [slots] 16-byte slots
+        ctypes.c_longlong,  # slots, a power of two
+        ctypes.c_longlong,  # capacity
+        ctypes.c_void_p,  # uint64 count of claimed slots
+        ctypes.c_void_p,  # int32 overflow flag
+        ctypes.c_void_p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    return fn

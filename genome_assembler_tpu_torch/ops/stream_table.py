@@ -20,6 +20,19 @@ layout and their mid-stream checkpoints cross):
     (bucketed: accumulation 1).
 
 The table is the same under every policy.
+
+On a CUDA device with one-limb keys (k <= 31) none of these merges runs:
+the carried table is a hash table (``ops/count_hash_torch.py``), every
+batch's keys go in at once by the hand-written insert kernel, and the
+table is sorted once, by ``finish`` (or by ``snapshot`` for a checkpoint).
+The JAX package sorts because its TPU has no fast data-dependent
+placement; the card has fast atomics. The layout and the stride still
+decide the checkpoint's params, the cursors at which a checkpoint may be
+taken (``at_boundary``) and the snapshot's form, so checkpoints cross
+between the packages as before; a bucketed snapshot that would drop keys
+of the exact hash table is refused. CPU tensors keep the sort merges (the
+plain version the tests hold to the JAX package), and so do two-limb keys
+on the card, which no benchmark cell runs.
 """
 
 from __future__ import annotations
@@ -34,11 +47,13 @@ from .bucketed_torch import (
     BucketedTable,
     auto_buckets,
     bucket_geometry,
+    bucketize,
     empty_bucketed,
     flatten_bucketed,
     merge_packed_bucketed,
     route_pack_keys,
 )
+from .count_hash_torch import count_insert, empty_hash, hash_to_table
 from .count_torch import CountTable
 
 # The streaming merge keeps its table in hash buckets (``bucketed="auto"``)
@@ -54,6 +69,18 @@ BUCKETED_MIN_MERGE_ROWS = 25 * (1 << 20)
 BUCKET_ACCUM = 4
 BUCKET_CB_SLACK = 1.25
 BUCKET_M_SLACK = 1.5
+
+SNAPSHOT_DROPS = (
+    "the bucketed checkpoint cannot hold this count: a hash bucket of its "
+    "form has more keys than its rows, though the table's unique keys fit "
+    "its capacity (the sort merges would flag this table as overflowed); "
+    "checkpoint with bucketed='off', or count without stream_checkpoint")
+
+
+def uses_hash_table(device: torch.device, nl: int) -> bool:
+    """Whether a carried table on ``device`` of ``nl``-limb keys is the
+    card's hash table: one-limb keys on a CUDA device."""
+    return device.type == "cuda" and nl == 1
 
 
 def use_bucketed(bucketed: str, merge_rows: int) -> bool:
@@ -180,13 +207,26 @@ class CarriedTable:
     filled rows, so no key of an earlier round is merged twice; the
     routing flags of the waiting batches wait with them. Merges aggregate
     associatively and ignore sentinel rows: the table equals merging every
-    batch."""
+    batch.
+
+    Where ``uses_hash_table`` (one-limb keys on a card) the table is
+    ``hash``, a ``HashCounts``, and every batch is inserted at once;
+    ``hash_batches`` counts them. A resumed table's rows go in with their
+    counts. Only the checkpoint cadence of the layout and stride is kept:
+    ``at_boundary`` holds after every ``stride`` x accumulation batches,
+    where the sort merges would have merged. Overflow is then flagged
+    only when the unique keys pass ``capacity`` (or routing overflowed),
+    never for one full bucket."""
 
     def __init__(self, capacity: int, nl: int, device: torch.device,
                  plan: BucketPlan | None, stride: int = 1,
                  pending_rows: int = 0,
                  table: CountTable | BucketedTable | None = None):
         self.capacity, self.nl, self.device = capacity, nl, device
+        self.plan, self.hash, self.hash_batches = plan, None, 0
+        if uses_hash_table(torch.device(device), nl):
+            self._init_hash(stride, table)
+            return
         self.stream = None
         if plan is not None:
             self.stream = BucketedStream(
@@ -200,21 +240,54 @@ class CarriedTable:
                                    device=device)
             self.overflow = torch.zeros((), dtype=torch.bool, device=device)
 
+    def _init_hash(self, stride: int, table) -> None:
+        self.hash = empty_hash(self.capacity, self.device)
+        self.cadence = stride * (1 if self.plan is None else self.plan.accum)
+        self.overflow = torch.zeros((), dtype=torch.bool, device=self.device)
+        if table is not None:  # a resumed table: its rows with their counts
+            count_insert(self.hash, table.limbs.reshape(-1, 1),
+                         table.counts.reshape(-1))
+            self.overflow = self.overflow | table.overflow
+
     @property
     def at_boundary(self) -> bool:
         """No added batch waits for its merge: a checkpoint may be taken."""
+        if self.hash is not None:
+            return self.hash_batches % self.cadence == 0
         return self.waiting == 0 and (self.stream is None
                                       or self.stream.at_boundary)
 
-    @property
-    def snapshot(self) -> CountTable | BucketedTable:
-        """The table a checkpoint saves, flat or bucketed (at a
-        boundary)."""
-        return self.table if self.stream is None else self.stream.table
+    def snapshot(self) -> tuple[CountTable | BucketedTable, torch.Tensor]:
+        """The table a checkpoint saves, flat or bucketed (at a boundary),
+        and a 0-d bool set where that form drops keys the running table
+        holds. Only a hash table under a bucketed plan can set it: the
+        table is exact while its unique keys fit the capacity, but a bucket
+        of the saved form holds ``cb`` rows, and a resume would carry the
+        truncated bucket's overflow. The caller refuses such a checkpoint
+        (``SNAPSHOT_DROPS``)."""
+        none_dropped = torch.zeros((), dtype=torch.bool, device=self.device)
+        if self.hash is None:
+            return (self.table if self.stream is None
+                    else self.stream.table), none_dropped
+        flat = self._hash_table()
+        if self.plan is None:
+            return flat, none_dropped
+        bt = bucketize(flat, self.plan.nb, self.plan.cb)
+        return bt, bt.overflow & ~flat.overflow
+
+    def _hash_table(self) -> CountTable:
+        table = hash_to_table(self.hash)
+        return table._replace(overflow=table.overflow | self.overflow)
 
     def add(self, keys: torch.Tensor, route_overflow=None) -> None:
         """One batch's raw keys (sentinel rows ignored); ``route_overflow``
         a 0-d bool of the routing that delivered them, or None."""
+        if self.hash is not None:
+            count_insert(self.hash, keys.contiguous())
+            self.hash_batches += 1
+            if route_overflow is not None:
+                self.overflow = self.overflow | route_overflow
+            return
         if self.stride == 1:
             self._merge(keys, route_overflow)
             return
@@ -248,6 +321,8 @@ class CarriedTable:
     def finish(self) -> CountTable:
         """Merge what still waits -> the flat compact-front table of
         ``capacity`` rows."""
+        if self.hash is not None:
+            return self._hash_table()
         if self.waiting:
             self._merge_waiting()
         if self.stream is not None:
@@ -257,3 +332,14 @@ class CarriedTable:
             return count_torch.empty_table(self.capacity, self.nl,
                                            self.device)
         return self.table
+
+
+def count_hash_use(metrics, carried: list[CarriedTable]) -> None:
+    """Where the carried tables are hash tables, count in ``metrics`` (a
+    ``Metrics`` or None) ``hash_batches``, the batches inserted (each local
+    table sees every batch: the most of any), and ``hash_slots``, the
+    slots of the tables, summed."""
+    hashed = [c.hash for c in carried if c.hash is not None]
+    if metrics is not None and hashed:
+        metrics.count("hash_batches", max(c.hash_batches for c in carried))
+        metrics.count("hash_slots", sum(h.slots.shape[0] for h in hashed))

@@ -69,7 +69,13 @@ from ..ops.kmer_torch import (
     unpack_codes,
     unpack_invalid_mask,
 )
-from ..ops.stream_table import CarriedTable, stream_layout, stride_taken
+from ..ops.stream_table import (
+    SNAPSHOT_DROPS,
+    CarriedTable,
+    count_hash_use,
+    stream_layout,
+    stride_taken,
+)
 from ..ops.superkmer_torch import (
     RUN_CAP,
     extract_from_records,
@@ -644,7 +650,9 @@ def _run_distributed_stream(
     tables and the batch cursor once N batches have passed (in the
     bucketed layout or under a stride: at the next merge);
     resume_stream_from continues from such a snapshot (same mesh size, k,
-    batching, capacity, stride, routing and layout, enforced).
+    batching, capacity, stride, routing and layout, enforced). A bucketed
+    snapshot that would drop keys of a shard's exact hash table raises on
+    every rank, as on one device.
     abort_after_batch=n raises after n batches of this call (the tests'
     stand-in for a killed run).
     """
@@ -679,8 +687,11 @@ def _run_distributed_stream(
     ]
 
     def save(next_batch):
+        snaps = [c.snapshot() for c in carried]
+        if bool(any_reduce(mesh, [drops for _, drops in snaps])):
+            raise RuntimeError(SNAPSHOT_DROPS)
         save_sharded_stream_checkpoint(
-            [c.snapshot for c in carried], stream_checkpoint, cfg.k,
+            [table for table, _ in snaps], stream_checkpoint, cfg.k,
             next_batch=next_batch, params=plan.ck_params, mesh=mesh,
         )
 
@@ -696,6 +707,7 @@ def _run_distributed_stream(
         if metrics is not None:
             metrics.count("a2a_bytes_count", a2a_step)
         cursor.after(i, all(c.at_boundary for c in carried))
+    count_hash_use(metrics, carried)
     tables = [c.finish() for c in carried]
     if bool(any_reduce(mesh, [t.overflow for t in tables])):
         raise RuntimeError(

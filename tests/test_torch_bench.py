@@ -81,6 +81,7 @@ def test_one_json_line_of_bench_py_shape(port_line):
     assert detail["extract_launches"] == {
         "count": 0, "extraction": 0, "stream": 0, "assemble": 0}
     assert detail["pack_launches"] == detail["extract_launches"]
+    assert detail["insert_launches"] == detail["extract_launches"]
     assert detail["stream_table_equal"] is True
     assert len(detail["count_s"]) == 1
     assert detail["best_s"] == min(detail["count_s"])

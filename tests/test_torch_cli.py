@@ -152,6 +152,7 @@ def test_trace_dir_and_metrics_out(reads_file, tmp_path, backend):
     assert report["derived"]["kmers_per_s"] > 0
     # the CPU packs with the plain version: no pack kernel launched
     assert report["pack_launches"] == 0
+    assert report["insert_launches"] == 0
     # stage wall times in the trace and in the report are the same clocks
     assert 0 < wall <= report["stages_s"]["count"] + 0.01
     if backend == "torch":

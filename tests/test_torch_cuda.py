@@ -569,6 +569,10 @@ def test_bench_torch_on_the_card(cuda_device):
     # assemblies' 2 (the count and single-shot legs pack on the host)
     assert d["pack_launches"] == {
         "count": 0, "extraction": 0, "stream": 4, "assemble": 2}
+    # inserted on the card: the streamed counts' 4 batches (the
+    # assemblies count in one shot)
+    assert d["insert_launches"] == {
+        "count": 0, "extraction": 0, "stream": 4, "assemble": 0}
 
 
 def test_run_large_torch_on_the_card(cuda_device):
@@ -581,8 +585,303 @@ def test_run_large_torch_on_the_card(cuda_device):
     assert line["exact_single_contig"] is True
     assert line["exact_kmer_content"] is True
     assert line["peak_gib"] > 0 and line["extract_launches"] == 2
-    assert line["pack_launches"] == 2
+    assert line["pack_launches"] == 2 and line["insert_launches"] == 2
     seq = ref.decode_seq(ref.simulate_genome(30_000, seed=9))
     for k in (31, 41):
         assert torch.equal(tool.canonical_keys(seq, k, cuda_device).cpu(),
                            tool.canonical_keys(seq, k, torch.device("cpu")))
+
+
+# ---- the streamed count's hash table (count_insert_kernel) ----
+
+
+def _key_batches(case):
+    """Batches of [N, 1] int64 keys on the CPU, one case each."""
+    from genome_assembler_tpu_torch.ops.hash_torch import owner_of
+    from genome_assembler_tpu_torch.utils.keys import SENTINEL
+
+    rng = np.random.default_rng(17)
+
+    def col(values):
+        return torch.tensor(values, dtype=torch.int64)[:, None]
+
+    if case == "repeats":  # 8 batches drawn from 30,000 keys
+        pool = rng.integers(0, 1 << 62, 30_000)
+        return [col(rng.choice(pool, 50_000)) for _ in range(8)]
+    if case == "one_key":
+        return [col([987654321] * 200_000)] * 3
+    if case == "sentinel_padded":  # routed buffers: lanes left empty
+        out = []
+        for _ in range(4):
+            keys = rng.integers(0, 1 << 40, 60_000)
+            keys[rng.random(60_000) < 0.5] = SENTINEL
+            out.append(col(keys))
+        return out
+    if case == "one_owner_shard":  # every key of shard 0 of 4
+        keys = col(rng.integers(0, 1 << 62, 200_000))
+        keys = keys[owner_of(keys, 31, 4) == 0][:20_000]
+        return [keys[rng.integers(0, keys.shape[0], 40_000)]
+                for _ in range(5)]
+    raise ValueError(case)
+
+
+def _sort_merged(batches, capacity):
+    from genome_assembler_tpu_torch.ops.stream_table import CarriedTable
+
+    carried = CarriedTable(capacity, 1, torch.device("cpu"), None)
+    for keys in batches:
+        carried.add(keys)
+    return carried.finish()
+
+
+@pytest.mark.parametrize("case", ["repeats", "one_key", "sentinel_padded",
+                                  "one_owner_shard"])
+def test_count_insert_kernel_equals_the_flat_merge(cuda_device, case):
+    """The kernel's table, sorted, equals the CPU's flat sort merges bit
+    for bit; the claimed slots are the occupied ones; every batch is one
+    launch."""
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+    from genome_assembler_tpu_torch.utils.keys import SENTINEL
+
+    batches = _key_batches(case)
+    ht = ch.empty_hash(65_536, cuda_device)
+    before = ch.count_insert.launches
+    for keys in batches:
+        ch.count_insert(ht, keys.to(cuda_device))
+    got = _to_cpu(ch.hash_to_table(ht))
+    assert ch.count_insert.launches - before == len(batches)
+    assert _tables_equal(got, _sort_merged(batches, 65_536))
+    assert int(ht.claimed) == int((ht.slots[:, 0] != SENTINEL).sum())
+
+
+def test_count_insert_kernel_takes_weights(cuda_device):
+    """A table's rows with their counts (a resumed checkpoint), then more
+    batches: the table of the sort merges."""
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+
+    batches = _key_batches("repeats")
+    first = _sort_merged(batches[:4], 65_536)
+    ht = ch.empty_hash(65_536, cuda_device)
+    ch.count_insert(ht, first.limbs.to(cuda_device),
+                    first.counts.to(cuda_device))
+    for keys in batches[4:]:
+        ch.count_insert(ht, keys.to(cuda_device))
+    assert _tables_equal(_to_cpu(ch.hash_to_table(ht)),
+                         _sort_merged(batches, 65_536))
+
+
+@pytest.mark.parametrize("capacity", [40_000, 30_000, 20_000, 15_500, 7_000],
+                         ids=["within", "at", "1.5x", "1.94x", "past_slots"])
+def test_count_insert_kernel_overflow(cuda_device, capacity):
+    """30,000 unique keys: flagged exactly when they pass the capacity;
+    up to twice the capacity the table is the flat merge's (the smallest
+    keys with their full counts); past the slots only the flag holds."""
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+
+    batches = _key_batches("repeats")
+    unique = torch.unique(torch.cat(batches)).numel()
+    assert 29_000 < unique <= 30_000
+    ht = ch.empty_hash(capacity, cuda_device)
+    for keys in batches:
+        ch.count_insert(ht, keys.to(cuda_device))
+    got = _to_cpu(ch.hash_to_table(ht))
+    assert bool(got.overflow) == (unique > capacity)
+    if unique <= 2 * capacity:
+        assert _tables_equal(got, _sort_merged(batches, capacity))
+    else:
+        assert int(ht.claimed) == ht.slots.shape[0]
+
+
+def test_count_insert_kernel_refuses_a_bad_table(cuda_device):
+    from genome_assembler_tpu_torch.ops import _build
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+
+    ht = ch.empty_hash(64, cuda_device)
+    keys = torch.zeros((8, 1), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ch.count_insert(ht, keys.new_zeros((8, 2))[:, :1])
+    with pytest.raises(ValueError, match="table on"):
+        ch.count_insert(ht, keys.cpu())
+    fn = _build.count_insert_fn()
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    args = (keys.data_ptr(), None, 8, ht.slots.data_ptr())
+    rest = (ht.claimed.data_ptr(), ht.overflow.data_ptr(), stream)
+    assert fn(*args, 100, 64, *rest) != 0  # slots not a power of two
+    assert fn(*args, 128, 129, *rest) != 0  # capacity past the slots
+    assert fn(keys.data_ptr(), None, 8, ht.slots.data_ptr() + 8, 64, 32,
+              *rest) != 0  # a table off 16 bytes
+    assert fn(*args, 128, 64, *rest) == 0
+    torch.cuda.synchronize(cuda_device)
+
+
+def _layout_kw(layout, monkeypatch):
+    from genome_assembler_tpu_torch.ops import stream_table
+
+    if layout == "auto":  # the bound passed: auto takes the buckets
+        monkeypatch.setattr(stream_table, "BUCKETED_MIN_MERGE_ROWS", 0)
+        return {"bucketed": "auto"}
+    if layout == "on":
+        return {"bucketed": "on", "_buckets": 8, "_bucket_accum": 3}
+    return {"bucketed": "off"}
+
+
+@pytest.mark.parametrize("stride", [1, 3])
+@pytest.mark.parametrize("layout", ["off", "auto", "on"])
+def test_hash_count_on_cuda_equals_cpu_sort_merges(cuda_device, monkeypatch,
+                                                   layout, stride):
+    """The streamed count on the card (the hash table) against the CPU's
+    sort merges, flat, auto-bucketed and bucketed, strides 1 and 3, one
+    device and 4 shards: the tables equal bit for bit, and every batch went
+    through the insert kernel (``hash_batches``)."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.ops import count_hash_torch as ch
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+    from genome_assembler_tpu_torch.utils.metrics import Metrics
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)[:2350]  # 5 batches
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=500)
+    kw = dict(table_capacity=65536, merge_stride=stride,
+              **_layout_kw(layout, monkeypatch))
+    want = count_reads_device(reads, cfg, device="cpu", **kw)
+    m = Metrics()
+    got = count_reads_device(reads, cfg, device=cuda_device, metrics=m, **kw)
+    assert _tables_equal(_to_cpu(got), want)
+    assert m.counters["hash_batches"] == 5
+    assert m.counters["hash_slots"] == ch.hash_slots(65536)
+    monkeypatch.setattr(pipeline, "DIST_STREAM_WINDOWS", 0)
+    m = Metrics()
+    got = pipeline._run_distributed_step(reads, cfg, mesh.build_mesh(4),
+                                         metrics=m, **kw)
+    cpu = pipeline._run_distributed_step(
+        reads, cfg, mesh.build_mesh(4, devices=["cpu"]), **kw)
+    assert m.counters["hash_batches"] == 5
+    for a, b in zip(got, cpu):
+        assert a.limbs.is_cuda and _tables_equal(_to_cpu(a), b)
+
+
+@pytest.mark.parametrize("layout", ["off", "on"])
+def test_hash_checkpoints_on_cuda_cross_cpu_sort_merges(cuda_device,
+                                                        monkeypatch, tmp_path,
+                                                        layout):
+    """A mid-stream checkpoint of the card's hash path is the CPU sort
+    merges' file at the same cursor; each resumes the other's to the full
+    table; one device and 4 shards."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.parallel import mesh, pipeline
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)  # 10 batches
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=240)
+    kw = dict(table_capacity=65536, **_layout_kw(layout, monkeypatch))
+    files = {}
+    for dev in ("cpu", cuda_device):
+        files[dev] = str(tmp_path / f"{torch.device(dev).type}.npz")
+        with pytest.raises(RuntimeError, match="fault injection"):
+            count_reads_device(reads, cfg, device=dev,
+                               stream_checkpoint=files[dev],
+                               stream_checkpoint_every=2,
+                               abort_after_batch=5, **kw)
+    _files_equal(files["cpu"], files[cuda_device])
+    full = count_reads_device(reads, cfg, device="cpu", **kw)
+    assert _tables_equal(_to_cpu(count_reads_device(
+        reads, cfg, device=cuda_device, resume_stream_from=files["cpu"],
+        **kw)), full)
+    assert _tables_equal(count_reads_device(
+        reads, cfg, device="cpu", resume_stream_from=files[cuda_device],
+        **kw), full)
+
+    monkeypatch.setattr(pipeline, "DIST_STREAM_WINDOWS", 0)
+    meshes = {"cpu": mesh.build_mesh(4, devices=["cpu"]),
+              "cuda": mesh.build_mesh(4)}
+    shard = {}
+    for name, msh in meshes.items():
+        shard[name] = str(tmp_path / f"shards_{name}.npz")
+        with pytest.raises(RuntimeError, match="fault injection"):
+            pipeline._run_distributed_step(
+                reads, cfg, msh, stream_checkpoint=shard[name],
+                stream_checkpoint_every=2, abort_after_batch=5, **kw)
+    _files_equal(shard["cpu"], shard["cuda"])
+    want = pipeline._run_distributed_step(reads, cfg, meshes["cpu"], **kw)
+    for name, other in (("cuda", "cpu"), ("cpu", "cuda")):
+        got = pipeline._run_distributed_step(
+            reads, cfg, meshes[name], resume_stream_from=shard[other], **kw)
+        for a, b in zip(got, want):
+            assert _tables_equal(_to_cpu(a), b)
+
+
+def _files_equal(path_a, path_b):
+    with np.load(path_a) as a, np.load(path_b) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for name in a.files:
+            assert a[name].dtype == b[name].dtype, name
+            np.testing.assert_array_equal(a[name], b[name])
+
+
+def test_a_full_bucket_flags_no_overflow_on_the_card(cuda_device,
+                                                     monkeypatch):
+    """Buckets of a quarter of their expected rows: the CPU's bucketed
+    sort merges flag overflow; the card's hash table, whose unique keys
+    stay within the capacity, gives the exact flat table (ROADMAP F)."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.ops import stream_table
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=500)
+    flat = count_reads_device(reads, cfg, device="cpu",
+                              table_capacity=65536, bucketed="off")
+    cap = 2 * int(flat.num_unique)
+    monkeypatch.setattr(stream_table, "BUCKET_CB_SLACK", 0.25)
+    kw = dict(table_capacity=cap, bucketed="on", _buckets=8)
+    assert bool(count_reads_device(reads, cfg, device="cpu", **kw).overflow)
+    got = _to_cpu(count_reads_device(reads, cfg, device=cuda_device, **kw))
+    want = count_reads_device(reads, cfg, device="cpu", table_capacity=cap,
+                              bucketed="off")
+    assert not bool(got.overflow) and _tables_equal(got, want)
+
+
+def test_a_bucketed_checkpoint_that_drops_keys_is_refused_on_the_card(
+        cuda_device, monkeypatch, tmp_path):
+    """The same buckets with a checkpoint: the card's bucketed snapshot
+    would drop keys of its exact table, so the checkpoint is refused and
+    no file is written; a flat checkpoint of the same run resumes to the
+    uninterrupted table."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.ops import stream_table
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)
+    cfg = ref.AssemblyConfig(k=31, read_len=100, batch_reads=500)
+    cap = 2 * int(count_reads_device(reads, cfg, device="cpu",
+                                     table_capacity=65536,
+                                     bucketed="off").num_unique)
+    monkeypatch.setattr(stream_table, "BUCKET_CB_SLACK", 0.25)
+    ck = str(tmp_path / "mid.npz")
+    # the snapshot after batch 4 of 5, when some bucket is past its rows
+    stop = dict(stream_checkpoint=ck, stream_checkpoint_every=4,
+                abort_after_batch=4)
+    with pytest.raises(RuntimeError, match="bucketed checkpoint cannot hold"):
+        count_reads_device(reads, cfg, device=cuda_device, table_capacity=cap,
+                           bucketed="on", _buckets=8, _bucket_accum=1,
+                           **stop)
+    assert not (tmp_path / "mid.npz").exists()
+    off = dict(device=cuda_device, table_capacity=cap, bucketed="off")
+    with pytest.raises(RuntimeError, match="fault injection"):
+        count_reads_device(reads, cfg, **off, **stop)
+    got = _to_cpu(count_reads_device(reads, cfg, resume_stream_from=ck, **off))
+    want = count_reads_device(reads, cfg, device="cpu", table_capacity=cap,
+                              bucketed="off")
+    assert _tables_equal(got, want)
+
+
+def test_two_limb_keys_on_cuda_keep_the_sort_merges(cuda_device):
+    """k = 41 on the card merges by sorts (no hash table): the table equals
+    the CPU's, and no batch went through the insert kernel."""
+    from genome_assembler_tpu_torch.models.pipeline import count_reads_device
+    from genome_assembler_tpu_torch.utils.metrics import Metrics
+
+    reads = _noisy_reads(genome_len=8000, coverage=30)[:2350]
+    cfg = ref.AssemblyConfig(k=41, read_len=100, batch_reads=500)
+    m = Metrics()
+    got = count_reads_device(reads, cfg, device=cuda_device, metrics=m,
+                             table_capacity=65536)
+    want = count_reads_device(reads, cfg, device="cpu", table_capacity=65536)
+    assert _tables_equal(_to_cpu(got), want)
+    assert "hash_batches" not in m.counters

@@ -80,7 +80,7 @@ def test_non_timing_fields_equal_run_large_py(jax_lines, stride):
     assert got["exact_kmer_content"] is True
     assert got["device"] == "cpu" and got["card"] is None
     assert got["peak_gib"] is None and got["extract_launches"] == 0
-    assert got["pack_launches"] == 0
+    assert got["pack_launches"] == 0 and got["insert_launches"] == 0
     # one batch of 6,000 reads: no stride is taken, the table stays flat
     assert got["merge_stride"] == 1 and got["bucketed"] is False
     assert got["table_capacity"] == 65_536

@@ -22,6 +22,7 @@ SOURCES = sorted(
 ) + ["chip_smoke.py", "bench_torch.py",
      os.path.join("tools", "run_large_torch.py"),
      os.path.join("tools", "probe_kmer_extract.py"),
+     os.path.join("tools", "probe_count_insert.py"),
      os.path.join("tools", "probe_upload.py"),
      os.path.join("tools", "probe_mesh.py")]
 

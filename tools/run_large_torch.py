@@ -24,7 +24,9 @@ device memory of the process (``peak_gib``, null on the CPU) and of its
 host memory (``host_peak_gib``; ``sim_host_peak_gib`` once the reads are
 simulated), the kernel's build (``build_s``, before
 the cold run), the extraction and the pack kernel's launches over the
-cold and warm runs (``extract_launches``, ``pack_launches``), and the streamed table's layout: the merge stride the count
+cold and warm runs (``extract_launches``, ``pack_launches``, and
+``insert_launches``, the insert kernel's: one a batch where the card's hash
+table counts), and the streamed table's layout: the merge stride the count
 recorded in its metrics, the rows a merge sorts at it, and whether
 ``auto`` took the buckets there. With ``--trace-dir DIR`` one more warm
 run goes under ``torch.profiler`` (``utils/metrics.py::profiler_trace``,
@@ -58,6 +60,7 @@ from genome_assembler_tpu_torch.models.pipeline import (
     pack_on_device,
 )
 from genome_assembler_tpu_torch.ops import _build, count_torch
+from genome_assembler_tpu_torch.ops.count_hash_torch import count_insert
 from genome_assembler_tpu_torch.ops.stream_table import use_bucketed
 from genome_assembler_tpu_torch.ops import kmer_torch as kmer
 from genome_assembler_tpu_torch.utils.config import AssemblyConfig
@@ -180,6 +183,7 @@ def run(args: argparse.Namespace) -> dict:
           f"{cap / 1e6:.0f}M, sim {sim_s:.0f}s", file=sys.stderr, flush=True)
 
     kmer.extract_canonical_flat.launches = kmer.pack_on_device.launches = 0
+    count_insert.launches = 0
 
     def assemble(metrics):
         return assemble_torch(rs.codes, cfg, device=dev, metrics=metrics,
@@ -199,6 +203,7 @@ def run(args: argparse.Namespace) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
     launches = kmer.extract_canonical_flat.launches
     pack_launches = kmer.pack_on_device.launches
+    insert_launches = count_insert.launches
 
     # the layout the count took: its recorded stride (1 unless a stride
     # was asked for) and the reference's bound on the rows of one merge
@@ -250,6 +255,7 @@ def run(args: argparse.Namespace) -> dict:
         "host_peak_gib": host_peak_gib(),
         "extract_launches": launches,
         "pack_launches": pack_launches,
+        "insert_launches": insert_launches,
         "traced": traced,
     }
 
